@@ -1,0 +1,508 @@
+"""The GraphLab data graph (paper §3.1) as PyTorch tensors.
+
+The port of ``repro.core.graph``.  The adjacency is the same
+**degree-bucketed sliced ELL**: vertices are permuted into width buckets
+(2, 4, ..., ``max_deg``), each bucket stores its own padded
+``[Nv_b, W_b]`` block, and the aggregation kernel runs one launch per
+bucket at the bucket's width.  The builder is the reference's, step for
+step, so every block, permutation and edge renumbering is bitwise the
+reference's (``tests/test_torch_graph.py``).
+
+Conventions (per bucket block, and in any padded view of it):
+
+* ``nbrs[v, j]``      -- vertex id of the j-th neighbor of v (0 if padded)
+* ``nbr_mask[v, j]``  -- True for real neighbor slots
+* ``edge_ids[v, j]``  -- edge id of that slot; padded slots hold the pad
+                         edge row ``n_edges``
+* ``is_src[v, j]``    -- True iff v is endpoint 0 of that edge
+
+Vertex and edge data are dicts of tensors with leading dim ``Nv`` resp.
+``n_edges + 1`` (one pad row).  Hub splitting, mutation slack and
+measured width plans are not ported yet (ROADMAP A6, A11): asking for
+them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+class EllRows(NamedTuple):
+    """A batch of adjacency rows materialized at width ``[B, D]``."""
+    nbrs: torch.Tensor
+    nbr_mask: torch.Tensor
+    edge_ids: torch.Tensor
+    is_src: torch.Tensor
+
+
+def sliced_slot_count(starts: Sequence[int], widths: Sequence[int]) -> int:
+    """Stored (= bucket-kernel-computed) slots ``sum_b Nv_b * W_b``."""
+    return sum((starts[b + 1] - starts[b]) * widths[b]
+               for b in range(len(widths)))
+
+
+def _tensor_dict(data, device) -> dict:
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            if not isinstance(v, torch.Tensor) else v.to(device)
+            for k, v in (data or {}).items()}
+
+
+# ----------------------------------------------------------------------
+# Sliced ELL: degree-bucketed adjacency storage
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SlicedEll:
+    """Degree-bucketed adjacency: one padded block per width bucket.
+
+    Bucket ``b`` holds the contiguous position range
+    ``[starts[b], starts[b+1])`` with block width ``widths[b]``.
+    ``perm[p]`` is the row stored at bucketed position ``p``;
+    ``inv_perm[r]`` is the position of row ``r``.  Neighbor values in
+    the blocks are row ids in the original addressing.
+    """
+
+    widths: tuple[int, ...]
+    starts: tuple[int, ...]
+    n_rows: int
+    max_deg: int
+    pad_edge: int
+    nbrs: tuple[torch.Tensor, ...]        # [Nv_b, W_b] int32
+    nbr_mask: tuple[torch.Tensor, ...]    # [Nv_b, W_b] bool
+    edge_ids: tuple[torch.Tensor, ...]    # [Nv_b, W_b] int32
+    is_src: tuple[torch.Tensor, ...]      # [Nv_b, W_b] bool
+    perm: torch.Tensor                    # [total_rows] int32
+    inv_perm: torch.Tensor                # [n_rows] int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.perm.device
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.widths)
+
+    @property
+    def scope_widths(self) -> tuple[int, ...]:
+        """Width classes of batch-shaped gathers (the bucket widths)."""
+        return self.widths
+
+    @property
+    def total_rows(self) -> int:
+        return self.starts[-1]
+
+    @property
+    def padded_slots(self) -> int:
+        """Stored (= kernel-computed) neighbor slots, padding included."""
+        return sliced_slot_count(self.starts, self.widths)
+
+    @property
+    def bucket_launches(self) -> tuple[tuple[int, int], ...]:
+        """The ``(width, rows)`` launch sequence of one bucket sweep."""
+        return tuple(
+            (int(self.widths[b]), int(self.starts[b + 1] - self.starts[b]))
+            for b in range(self.n_buckets))
+
+    def bucket_slices(self, arr: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Split a ``[total_rows, ...]`` tensor into per-bucket views."""
+        return tuple(arr[self.starts[b]: self.starts[b + 1]]
+                     for b in range(self.n_buckets))
+
+    def snap_width(self, width: int) -> int:
+        """Snap a requested scope width up to the nearest bucket width."""
+        for w in self.scope_widths:
+            if w >= width:
+                return w
+        return self.scope_widths[-1]
+
+    def rows(self, ids: torch.Tensor, width: int | None = None) -> EllRows:
+        """Materialize ``[B, W]`` adjacency rows (default ``W=max_deg``);
+        columns past a row's bucket width read as padding."""
+        d = self.max_deg if width is None else self.snap_width(width)
+        return self._gather_rows(self.inv_perm[ids.long()], d)
+
+    def _gather_rows(self, pos: torch.Tensor, d: int) -> EllRows:
+        """Rows at bucketed positions ``pos [B]``; positions outside
+        every bucket (the ``total_rows`` sentinel) read as padding.
+
+        The outputs are allocated once at ``[B, d]`` and each bucket
+        writes, in place, only the leading ``W_b`` columns of its own
+        rows.  The reference pads every bucket's gather to ``[B, d]``
+        and selects with ``where``; at full size (B ~ 1.3M rows, d=256)
+        that would allocate four ``[B, d]`` arrays per bucket.
+        """
+        b_rows = pos.shape[0]
+        dev = self.device
+        out_n = torch.zeros((b_rows, d), dtype=torch.int32, device=dev)
+        out_m = torch.zeros((b_rows, d), dtype=torch.bool, device=dev)
+        out_e = torch.full((b_rows, d), self.pad_edge, dtype=torch.int32,
+                           device=dev)
+        out_s = torch.zeros((b_rows, d), dtype=torch.bool, device=dev)
+        for b in range(self.n_buckets):
+            s, e, w = self.starts[b], self.starts[b + 1], self.widths[b]
+            if w > d:
+                break
+            hit = ((pos >= s) & (pos < e)).nonzero().squeeze(1)
+            loc = pos[hit].long() - s
+            out_n[hit, :w] = self.nbrs[b][loc]
+            out_m[hit, :w] = self.nbr_mask[b][loc]
+            out_e[hit, :w] = self.edge_ids[b][loc]
+            out_s[hit, :w] = self.is_src[b][loc]
+        return EllRows(out_n, out_m, out_e, out_s)
+
+    def row_activation(self, ids: torch.Tensor,
+                       sel: torch.Tensor) -> torch.Tensor:
+        """Route selected batch slots to their bucketed rows:
+        ``[total_rows]`` bool."""
+        act = torch.zeros(self.total_rows, dtype=torch.bool,
+                          device=self.device)
+        act[self.inv_perm[ids[sel].long()].long()] = True
+        return act
+
+    def to_padded(self) -> EllRows:
+        """The monolithic ``[n_rows, max_deg]`` view (tests, oracles)."""
+        return self.rows(torch.arange(self.n_rows, device=self.device))
+
+    def to(self, device) -> "SlicedEll":
+        mv = lambda ts: tuple(t.to(device) for t in ts)
+        return dataclasses.replace(
+            self, nbrs=mv(self.nbrs), nbr_mask=mv(self.nbr_mask),
+            edge_ids=mv(self.edge_ids), is_src=mv(self.is_src),
+            perm=self.perm.to(device), inv_perm=self.inv_perm.to(device))
+
+
+def bucket_major_edge_order(ell: SlicedEll, n_edges: int) -> np.ndarray:
+    """Edge ids in bucket-major first-visit order: ``order[new] = old``.
+
+    Walking buckets in width order, rows in bucketed position order and
+    slots left to right, an edge is numbered at its first appearance.
+    Host-side, build-time only.
+    """
+    visits = [ell.edge_ids[b].cpu().numpy()[ell.nbr_mask[b].cpu().numpy()]
+              for b in range(ell.n_buckets)]
+    flat = (np.concatenate(visits) if visits
+            else np.zeros(0, np.int64)).astype(np.int64)
+    _, first = np.unique(flat, return_index=True)
+    order = flat[np.sort(first)]
+    if len(order) != n_edges:
+        raise ValueError("every edge must appear in some row")
+    return order
+
+
+def _renumber_edge_ids(ell: SlicedEll, inv_order: np.ndarray,
+                       n_edges: int) -> SlicedEll:
+    """Map every stored edge id through ``inv_order`` (the pad id is a
+    fixed point)."""
+    table = np.arange(ell.pad_edge + 1, dtype=np.int32)
+    table[:n_edges] = inv_order
+    table = torch.from_numpy(table).to(ell.device)
+    return dataclasses.replace(
+        ell, edge_ids=tuple(table[e.long()] for e in ell.edge_ids))
+
+
+def default_bucket_widths(max_deg: int) -> tuple[int, ...]:
+    """Power-of-two widths 2, 4, ... capped by (and ending at) max_deg."""
+    out, w = [], 2
+    while w < max_deg:
+        out.append(w)
+        w *= 2
+    out.append(max(max_deg, 1))
+    return tuple(out)
+
+
+def bucket_index(widths, slot_cnt: np.ndarray) -> np.ndarray:
+    """The bucket of each row: the smallest width covering its slot
+    count (zero-slot rows to the first bucket)."""
+    return np.searchsorted(np.asarray(widths), np.maximum(slot_cnt, 1))
+
+
+def build_sliced_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
+                     edge_ids: np.ndarray, is_src: np.ndarray,
+                     pad_edge: int, widths: Sequence[int] | None = None,
+                     device=None) -> SlicedEll:
+    """Bucket host-side padded ELL arrays into a ``SlicedEll``.
+
+    Each row goes to the smallest bucket whose width covers its real
+    slot count; within a bucket, rows keep ascending id order; empty
+    buckets are dropped.  The blocks are built on the host and copied
+    to ``device`` once.
+    """
+    device = resolve_device(device)
+    n_rows, d = nbrs.shape
+    slot_cnt = nbr_mask.sum(axis=1)
+    widths = tuple(widths) if widths is not None \
+        else default_bucket_widths(int(d))
+    if n_rows and widths[-1] < int(slot_cnt.max()):
+        raise ValueError("bucket ladder must cover every row's slot count")
+    bidx = bucket_index(widths, slot_cnt)
+    groups = [np.nonzero(bidx == b)[0] for b in range(len(widths))]
+    keep = [b for b in range(len(widths)) if len(groups[b])] or [0]
+    widths = tuple(widths[b] for b in keep)
+    groups = [groups[b] for b in keep]
+    sizes = [len(g) for g in groups]
+
+    starts = (0, *np.cumsum(sizes).tolist())
+    perm = np.full(starts[-1], n_rows, dtype=np.int32)
+    inv_perm = np.zeros(n_rows, dtype=np.int32)
+    up = lambda a: torch.from_numpy(a).to(device)
+    bn, bm, be, bs = [], [], [], []
+    for b, (g, w) in enumerate(zip(groups, widths)):
+        we = min(w, int(d))
+        nb = np.zeros((sizes[b], w), np.int32)
+        mk = np.zeros((sizes[b], w), bool)
+        ei = np.full((sizes[b], w), pad_edge, np.int32)
+        sr = np.zeros((sizes[b], w), bool)
+        nb[:, :we] = nbrs[g, :we]
+        mk[:, :we] = nbr_mask[g, :we]
+        ei[:, :we] = edge_ids[g, :we]
+        sr[:, :we] = is_src[g, :we]
+        perm[starts[b]: starts[b + 1]] = g
+        inv_perm[g] = np.arange(starts[b], starts[b + 1])
+        bn.append(up(nb))
+        bm.append(up(mk))
+        be.append(up(ei))
+        bs.append(up(sr))
+    return SlicedEll(
+        widths=widths, starts=starts, n_rows=n_rows, max_deg=int(d),
+        pad_edge=int(pad_edge), nbrs=tuple(bn), nbr_mask=tuple(bm),
+        edge_ids=tuple(be), is_src=tuple(bs), perm=up(perm),
+        inv_perm=up(inv_perm))
+
+
+# ----------------------------------------------------------------------
+# Padded-ELL builder (host side)
+# ----------------------------------------------------------------------
+
+def _build_ell_vectorized(n_vertices: int, edges: np.ndarray, md: int):
+    """Vectorized padded-ELL build (lexsort/cumsum slot assignment), a
+    copy of the reference's, including its self-loop semantics (both
+    endpoint writes share one slot; the non-src write wins; the slot
+    cursor advances once)."""
+    ne = len(edges)
+    nbrs = np.zeros((n_vertices, md), dtype=np.int32)
+    mask = np.zeros((n_vertices, md), dtype=bool)
+    eids = np.full((n_vertices, md), ne, dtype=np.int32)
+    is_src = np.zeros((n_vertices, md), dtype=bool)
+    if ne == 0:
+        return nbrs, mask, eids, is_src
+
+    flat_v = edges.reshape(-1)                    # u0, v0, u1, v1, ...
+    # slot of occurrence k = prior occurrences of that vertex, counting a
+    # self-loop's two occurrences once
+    vside_selfloop = np.zeros(2 * ne, dtype=np.int64)
+    vside_selfloop[1::2] = edges[:, 0] == edges[:, 1]
+    order = np.argsort(flat_v, kind="stable")
+    sv = flat_v[order]
+    boundary = np.ones(2 * ne, dtype=bool)
+    boundary[1:] = sv[1:] != sv[:-1]
+    group_id = np.cumsum(boundary) - 1
+    group_start = np.nonzero(boundary)[0]
+    rank_sorted = np.arange(2 * ne) - group_start[group_id]
+    cum = np.cumsum(vside_selfloop[order])
+    before_group = np.concatenate([[0], cum])[group_start]
+    slot_sorted = rank_sorted - (cum - before_group[group_id])
+    slot = np.empty(2 * ne, dtype=np.int64)
+    slot[order] = slot_sorted
+
+    nbr_flat = edges[:, ::-1].reshape(-1)         # v0, u0, v1, u1, ...
+    eid_flat = np.repeat(np.arange(ne, dtype=np.int64), 2)
+    src_flat = np.tile(np.asarray([True, False]), ne)
+    nbrs[flat_v, slot] = nbr_flat
+    mask[flat_v, slot] = True
+    eids[flat_v, slot] = eid_flat
+    src_flat[1::2] = edges[:, 0] == edges[:, 1]
+    is_src[flat_v, slot] = src_flat
+    return nbrs, mask, eids, is_src
+
+
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class DataGraph:
+    """Static graph structure + mutable vertex/edge data (tensors)."""
+
+    n_vertices: int
+    n_edges: int
+    max_deg: int
+    ell: SlicedEll
+    degree: torch.Tensor       # [Nv] int32
+    vertex_data: dict          # name -> [Nv, ...]
+    edge_data: dict            # name -> [n_edges + 1, ...] (last row = pad)
+    edges_np: np.ndarray       # [n_edges, 2] int64, stored edge order
+    colors: torch.Tensor | None = None   # [Nv] int32
+    n_colors: int = 0
+    # edge_perm[new] = input-order edge id; edge_inv_perm[input] = new
+    edge_perm: np.ndarray | None = None
+    edge_inv_perm: np.ndarray | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.ell.device
+
+    @staticmethod
+    def from_edges(
+        n_vertices: int,
+        edges: np.ndarray,
+        vertex_data: dict,
+        edge_data: dict | None = None,
+        max_deg: int | None = None,
+        bucket_widths: Sequence[int] | None = None,
+        edge_locality: bool = True,
+        hub_split: bool = False,
+        w_cap: int | None = None,
+        width_policy: str | None = None,
+        slack: int = 0,
+        device=None,
+    ) -> "DataGraph":
+        """Build the sliced-ELL structure from an undirected edge list.
+
+        ``edges``: [Ne, 2] integer array, each row an undirected edge
+        {u, v}.  ``edge_locality`` renumbers edge rows into bucket-major
+        first-visit order (``edge_data`` is given in input order and
+        permuted here; ``edge_perm`` maps back).  Data values may be
+        numpy arrays or tensors; they keep their dtype.  Tensors go to
+        ``device`` (default: the GPU, see ``resolve_device``).
+        """
+        device = resolve_device(device)
+        if hub_split or w_cap is not None:
+            raise NotImplementedError(
+                "hub splitting (hub_split=/w_cap=) is not ported to "
+                "repro_torch yet: ROADMAP A6")
+        if width_policy not in (None, "pow2"):
+            raise NotImplementedError(
+                f"width_policy={width_policy!r} is not ported to "
+                "repro_torch yet (measured width plans): ROADMAP A6")
+        if slack:
+            raise NotImplementedError(
+                "slack= (mutable storage) is not ported to repro_torch "
+                "yet: ROADMAP A11")
+        edges = np.asarray(edges, dtype=np.int64)
+        if edges.size == 0:
+            edges = edges.reshape(0, 2)
+        ne = len(edges)
+        deg = (np.bincount(edges[:, 0], minlength=n_vertices)
+               + np.bincount(edges[:, 1], minlength=n_vertices))
+        md = int(deg.max()) if ne else 1
+        if max_deg is not None:
+            if max_deg < md:
+                raise ValueError(f"max_deg={max_deg} < actual max degree {md}")
+            md = max_deg
+        md = max(md, 1)
+
+        nbrs, mask, eids, is_src = _build_ell_vectorized(
+            n_vertices, edges, md)
+        ell = build_sliced_ell(nbrs, mask, eids, is_src, pad_edge=ne,
+                               widths=bucket_widths, device=device)
+        del nbrs, mask, eids, is_src
+
+        edge_data = _tensor_dict(edge_data, device)
+        if edge_locality and ne:
+            order = bucket_major_edge_order(ell, ne)
+            inv_order = np.empty(ne, dtype=np.int64)
+            inv_order[order] = np.arange(ne)
+            ell = _renumber_edge_ids(ell, inv_order, ne)
+            edges = edges[order]
+            sel = torch.from_numpy(order).to(device)
+            edge_data = {k: v[sel] for k, v in edge_data.items()}
+        else:
+            order = np.arange(ne, dtype=np.int64)
+            inv_order = order.copy()
+        # the pad edge row last, all zeros
+        edge_data = {k: torch.cat([v, v.new_zeros((1,) + v.shape[1:])])
+                     for k, v in edge_data.items()}
+        return DataGraph(
+            n_vertices=n_vertices,
+            n_edges=ne,
+            max_deg=md,
+            ell=ell,
+            degree=torch.from_numpy(deg.astype(np.int32)).to(device),
+            vertex_data=_tensor_dict(vertex_data, device),
+            edge_data=edge_data,
+            edges_np=edges,
+            edge_perm=order,
+            edge_inv_perm=inv_order,
+        )
+
+    # -- structure access ----------------------------------------------
+    @property
+    def n_rows(self) -> int:
+        """Row-id space (the number of addressable rows)."""
+        return self.n_vertices
+
+    def struct_rows(self, ids: torch.Tensor,
+                    width: int | None = None) -> EllRows:
+        """Adjacency rows for a batch of vertex ids."""
+        return self.ell.rows(ids, width=width)
+
+    def to_padded(self) -> EllRows:
+        """Monolithic ``[Nv, max_deg]`` view (oracle / test escape hatch)."""
+        return self.ell.to_padded()
+
+    # ------------------------------------------------------------------
+    def with_colors(self, colors: np.ndarray) -> "DataGraph":
+        colors = np.asarray(colors)
+        return dataclasses.replace(
+            self,
+            colors=torch.from_numpy(colors.astype(np.int32)).to(self.device),
+            n_colors=int(colors.max()) + 1 if colors.size else 1,
+        )
+
+    def to(self, device) -> "DataGraph":
+        """The same graph with every tensor on ``device``."""
+        device = torch.device(device)
+        return dataclasses.replace(
+            self, ell=self.ell.to(device), degree=self.degree.to(device),
+            vertex_data=_tensor_dict(self.vertex_data, device),
+            edge_data=_tensor_dict(self.edge_data, device),
+            colors=None if self.colors is None else self.colors.to(device))
+
+
+# ----------------------------------------------------------------------
+# Generators (host side)
+# ----------------------------------------------------------------------
+
+def bipartite_edges(n_left: int, n_right: int,
+                    pairs: np.ndarray) -> tuple[int, np.ndarray]:
+    """Map (left_i, right_j) pairs to global vertex ids: left vertices
+    get ids [0, n_left), right vertices [n_left, n_left+n_right)."""
+    pairs = np.asarray(pairs, dtype=np.int64)
+    edges = np.stack([pairs[:, 0], pairs[:, 1] + n_left], axis=1)
+    return n_left + n_right, edges
+
+
+def grid_edges_3d(nx: int, ny: int, nz: int) -> tuple[int, np.ndarray]:
+    """6-connected 3-D grid (the CoSeg super-pixel graph, paper §5.2),
+    edges in the reference's (x, y, z, then +x/+y/+z) order."""
+    vid = np.arange(nx * ny * nz, dtype=np.int64).reshape(nx, ny, nz)
+    cand = np.full((nx, ny, nz, 3, 2), -1, dtype=np.int64)
+    cand[:-1, :, :, 0, 0] = vid[:-1]
+    cand[:-1, :, :, 0, 1] = vid[1:]
+    cand[:, :-1, :, 1, 0] = vid[:, :-1]
+    cand[:, :-1, :, 1, 1] = vid[:, 1:]
+    cand[:, :, :-1, 2, 0] = vid[:, :, :-1]
+    cand[:, :, :-1, 2, 1] = vid[:, :, 1:]
+    cand = cand.reshape(-1, 2)
+    return nx * ny * nz, cand[cand[:, 0] >= 0]
+
+
+def zipf_edges(n_vertices: int, alpha: float = 2.0,
+               max_deg: int | None = None, seed: int = 0) -> np.ndarray:
+    """Power-law degree graph via the configuration model: Zipf(alpha)
+    degrees (optionally clipped to ``max_deg``), stubs paired uniformly
+    at random, self loops and duplicate edges dropped.  The same numpy
+    calls as the reference, so the same seed gives the same edges."""
+    rng = np.random.default_rng(seed)
+    deg = rng.zipf(alpha, n_vertices)
+    if max_deg is not None:
+        deg = np.minimum(deg, max_deg)
+    stubs = np.repeat(np.arange(n_vertices, dtype=np.int64), deg)
+    rng.shuffle(stubs)
+    pairs = stubs[: 2 * (len(stubs) // 2)].reshape(-1, 2)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    lo = np.minimum(pairs[:, 0], pairs[:, 1])
+    hi = np.maximum(pairs[:, 0], pairs[:, 1])
+    return np.unique(np.stack([lo, hi], axis=1), axis=0)

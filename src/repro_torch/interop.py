@@ -1,0 +1,75 @@
+"""Carry a graph across between ``repro`` and the port as numpy arrays.
+
+A reference ``DataGraph`` exported to a dict of numpy arrays plus a
+small ``meta`` dict becomes a port ``DataGraph`` on identical storage:
+the same bucket blocks, permutation, degrees, colors, edge renumbering
+and vertex/edge data.  Both engines then run on the same graph, so a
+comparison of their results compares the engines and nothing else.
+The export of a reference graph lives in the tests, because this
+package never imports JAX; ``graph_to_arrays`` is the same export for a
+port graph.
+
+Array keys: ``nbrs.<b>``, ``nbr_mask.<b>``, ``edge_ids.<b>``,
+``is_src.<b>`` per bucket ``b``; ``perm``, ``inv_perm``, ``degree``,
+``edges``, ``edge_perm``, ``edge_inv_perm``, optionally ``colors``; and
+``vertex.<name>`` / ``edge.<name>`` for the data (edge data includes
+the pad row).  Meta keys: ``n_vertices``, ``n_edges``, ``max_deg``,
+``widths``, ``starts``, ``pad_edge``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import DataGraph, SlicedEll
+from repro_torch.device import resolve_device
+
+_BLOCKS = ("nbrs", "nbr_mask", "edge_ids", "is_src")
+
+
+def graph_from_arrays(arrays: dict, meta: dict, device=None) -> DataGraph:
+    """A port ``DataGraph`` on ``device`` from exported arrays."""
+    device = resolve_device(device)
+    up = lambda a: torch.from_numpy(np.array(a)).to(device)   # a writable copy
+    widths = tuple(int(w) for w in meta["widths"])
+    blocks = {f: tuple(up(arrays[f"{f}.{b}"]) for b in range(len(widths)))
+              for f in _BLOCKS}
+    ell = SlicedEll(
+        widths=widths, starts=tuple(int(s) for s in meta["starts"]),
+        n_rows=int(meta["n_vertices"]), max_deg=int(meta["max_deg"]),
+        pad_edge=int(meta["pad_edge"]), perm=up(arrays["perm"]),
+        inv_perm=up(arrays["inv_perm"]), **blocks)
+    graph = DataGraph(
+        n_vertices=int(meta["n_vertices"]), n_edges=int(meta["n_edges"]),
+        max_deg=int(meta["max_deg"]), ell=ell, degree=up(arrays["degree"]),
+        vertex_data={k[len("vertex."):]: up(v) for k, v in arrays.items()
+                     if k.startswith("vertex.")},
+        edge_data={k[len("edge."):]: up(v) for k, v in arrays.items()
+                   if k.startswith("edge.")},
+        edges_np=np.asarray(arrays["edges"], dtype=np.int64),
+        edge_perm=np.asarray(arrays["edge_perm"]),
+        edge_inv_perm=np.asarray(arrays["edge_inv_perm"]))
+    if "colors" in arrays:
+        graph = graph.with_colors(arrays["colors"])
+    return graph
+
+
+def graph_to_arrays(graph: DataGraph) -> tuple[dict, dict]:
+    """The ``(arrays, meta)`` export of a port graph."""
+    host = lambda t: t.cpu().numpy()
+    ell = graph.ell
+    arrays = {f"{f}.{b}": host(getattr(ell, f)[b])
+              for f in _BLOCKS for b in range(ell.n_buckets)}
+    arrays.update(perm=host(ell.perm), inv_perm=host(ell.inv_perm),
+                  degree=host(graph.degree), edges=graph.edges_np,
+                  edge_perm=graph.edge_perm,
+                  edge_inv_perm=graph.edge_inv_perm)
+    if graph.colors is not None:
+        arrays["colors"] = host(graph.colors)
+    arrays.update({f"vertex.{k}": host(v)
+                   for k, v in graph.vertex_data.items()})
+    arrays.update({f"edge.{k}": host(v) for k, v in graph.edge_data.items()})
+    meta = dict(n_vertices=graph.n_vertices, n_edges=graph.n_edges,
+                max_deg=graph.max_deg, widths=list(ell.widths),
+                starts=list(ell.starts), pad_edge=ell.pad_edge)
+    return arrays, meta

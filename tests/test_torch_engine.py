@@ -1,0 +1,304 @@
+"""The port's chromatic PageRank against the reference's ``api.run``.
+
+The reference graph is carried across with ``interop.graph_from_arrays``
+so both engines run on identical storage.  Ranks are held to a
+tolerance, not bitwise: XLA on the CPU contracts PageRank's combine
+``ALPHA + (1 - ALPHA) * y`` into a fused multiply-add, and eager torch
+does not fuse, so each update can differ by an ulp.  The port's own
+invariants are bitwise: the kernel arm equals the dense arm, and the
+GPU run equals the CPU run (``tests/test_torch_cuda.py``, on a card).
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import api as ref_api
+from repro.apps import pagerank as ref_pagerank
+from repro.core import exec as ref_exec
+from repro.core import sync as ref_sync
+from repro.core import update as ref_update
+from repro_torch import api, interop
+from repro_torch.apps import pagerank
+from repro_torch.core import exec as port_exec
+from repro_torch.core import sync as port_sync
+from repro_torch.core import update as port_update
+from torch_parity import ENGINE_GRAPHS, reference_arrays
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Per graph: the reference graph, its triple, the port's graph and
+    triple on the same storage, and the reference's two runs."""
+    out = {}
+    for name, (n, edges_fn, eps) in ENGINE_GRAPHS.items():
+        edges = edges_fn()
+        g, upd, syncs = ref_pagerank.build(edges, n, eps=eps)
+        port_g = interop.graph_from_arrays(*reference_arrays(g), device="cpu")
+        port_triple = (port_g, pagerank.make_update(eps),
+                       (pagerank.second_most_popular_sync(),
+                        pagerank.total_rank_sync()))
+        fixed = ref_api.run(g, upd, syncs=syncs, num_supersteps=5)
+        conv = ref_api.run(g, upd, syncs=syncs)
+        out[name] = dict(n=n, edges=edges, eps=eps, port=port_triple,
+                         fixed=fixed, conv=conv)
+    return out
+
+
+def _port_run(case, **kw):
+    g, upd, syncs = case["port"]
+    return api.run(g, upd, syncs=syncs, device="cpu", **kw)
+
+
+def _ranks(res):
+    return np.asarray(res.vertex_data["rank"])
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_GRAPHS))
+def test_fixed_supersteps_match_reference(runs, name):
+    case = runs[name]
+    got = _port_run(case, num_supersteps=5)
+    want = case["fixed"]
+    assert got.superstep == want.superstep == 5
+    assert got.n_updates == want.n_updates
+    np.testing.assert_allclose(_ranks(got), _ranks(want), rtol=1e-5)
+
+
+# (superstep, n_updates) of the port's converged run where an eps
+# decision flipped against the reference's (ROADMAP queue C): the ulp
+# from the unfused combine moves one |delta| across eps, and the extra
+# neighbour wakes add updates.  The reference's counts are asserted too.
+EPS_FLIPS = {"quickstart": ((25, 4791), (25, 4787))}
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_GRAPHS))
+def test_converged_run_matches_reference(runs, name):
+    case = runs[name]
+    got = _port_run(case)
+    want = case["conv"]
+    assert not got.active_any and not want.active_any
+    counts = ((got.superstep, got.n_updates),
+              (want.superstep, want.n_updates))
+    if name in EPS_FLIPS:
+        assert counts == EPS_FLIPS[name]
+    else:
+        assert counts[0] == counts[1]
+    np.testing.assert_allclose(_ranks(got), _ranks(want), rtol=0,
+                               atol=10 * case["eps"])
+    assert float(got.globals["total_rank"]) == pytest.approx(
+        float(want.globals["total_rank"]), rel=1e-5)
+    ranks = _ranks(got)
+    assert float(got.globals["top2"][0]) == np.sort(ranks)[-2]
+    assert float(got.globals["total_rank"]) == pytest.approx(
+        ranks.astype(np.float64).sum(), rel=1e-5)
+
+
+def _fma_combine_update(eps):
+    """PageRank whose combine rounds ``ALPHA + (1 - ALPHA) * y`` once,
+    as the fused multiply-add XLA emits on the CPU (emulated in float64,
+    where the product of two float32 values is exact)."""
+    a = float(np.float32(pagerank.ALPHA))
+    b = float(np.float32(1.0 - pagerank.ALPHA))
+
+    def combine(scope, y):
+        new_rank = (a + b * y[..., 0].double()).float()
+        delta = torch.abs(new_rank - scope.v_data["rank"])
+        return port_update.UpdateResult(
+            v_data={"rank": new_rank},
+            resched_nbrs=(delta > eps)[:, None].expand(scope.nbr_mask.shape),
+            priority=delta)
+
+    agg = pagerank.make_update(eps).aggregator
+    return port_update.aggregator_update(agg.feature, agg.weight, combine)
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_GRAPHS))
+def test_bitwise_with_reference_once_the_combine_is_fused(runs, name):
+    """Everything but the combine's rounding is bitwise the reference's:
+    with the combine fused as XLA fuses it, ranks, counts and syncs of
+    the converged run equal the reference's exactly."""
+    case = runs[name]
+    g, _, syncs = case["port"]
+    got = api.run(g, _fma_combine_update(case["eps"]), syncs=syncs,
+                  device="cpu")
+    want = case["conv"]
+    np.testing.assert_array_equal(_ranks(got), _ranks(want))
+    assert (got.superstep, got.n_updates) == (want.superstep, want.n_updates)
+    assert got.globals["total_rank"].item() == np.float32(
+        want.globals["total_rank"])
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_GRAPHS))
+def test_converged_ranks_are_a_fixed_point(runs, name):
+    case = runs[name]
+    r = _ranks(_port_run(case)).astype(np.float64)
+    wr = pagerank.sparse_matvec(case["edges"], case["n"], r)
+    resid = np.abs(r - (pagerank.ALPHA + (1 - pagerank.ALPHA) * wr)).max()
+    assert resid < 100 * case["eps"]
+    oracle = pagerank.reference_pagerank(case["edges"], case["n"])
+    np.testing.assert_allclose(r, oracle, atol=100 * case["eps"])
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_GRAPHS))
+def test_kernel_arm_equals_dense_arm_bitwise(runs, name):
+    case = runs[name]
+    kern = _port_run(case, use_kernel=True)
+    dense = _port_run(case, use_kernel=False)
+    assert torch.equal(kern.vertex_data["rank"], dense.vertex_data["rank"])
+    assert (kern.superstep, kern.n_updates) == (dense.superstep,
+                                                dense.n_updates)
+    for k in kern.globals:
+        for a, b in zip(kern.globals[k] if isinstance(kern.globals[k], tuple)
+                        else [kern.globals[k]],
+                        dense.globals[k] if isinstance(dense.globals[k], tuple)
+                        else [dense.globals[k]]):
+            assert torch.equal(a, b)
+
+
+def test_pagerank_build_runs_end_to_end():
+    n, edges_fn, eps = ENGINE_GRAPHS["quickstart"]
+    g, upd, syncs = pagerank.build(edges_fn(), n, eps=eps, device="cpu")
+    res = api.run(g, upd, syncs=syncs, max_supersteps=3, device="cpu")
+    assert res.superstep == 3 and res.n_updates > 0
+    assert res.vertex_data["rank"].shape == (n,)
+
+
+def test_sum_and_top_two_syncs_match_reference():
+    rng = np.random.default_rng(7)
+    for n in (1, 6, 37):
+        rank = rng.normal(size=n).astype(np.float32)
+        rank[rng.integers(0, n, n // 3)] = 0.5          # ties
+        ids = np.arange(n, dtype=np.int32)
+        vd_j = {"rank": jnp.asarray(rank), "id": jnp.asarray(ids)}
+        vd_t = {"rank": torch.from_numpy(rank), "id": torch.from_numpy(ids)}
+        want = ref_sync.sum_sync("s", lambda r: r["rank"]).run(vd_j)
+        got = port_sync.sum_sync("s", lambda r: r["rank"]).run(vd_t)
+        assert got.item() == np.float32(want)
+        mk = lambda mod: mod.top_two_sync("t", lambda r: r["rank"],
+                                          id_fn=lambda r: r["id"])
+        (wv, wi), (gv, gi) = mk(ref_sync).run(vd_j), mk(port_sync).run(vd_t)
+        assert gv.item() == np.float32(wv) and gi.item() == int(wi)
+
+
+def _scope_inputs(n=40, b=12, d=5, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(n, size=b, replace=False).astype(np.int32)
+    sel = rng.random(b) < 0.7
+    nbrs = rng.integers(0, n, (b, d)).astype(np.int32)
+    mask = rng.random((b, d)) < 0.6
+    return rng, ids, sel, nbrs, mask
+
+
+def test_consume_and_reschedule_matches_reference():
+    rng, ids, sel, nbrs, mask = _scope_inputs()
+    n = 40
+    active = rng.random(n) < 0.5
+    prio = rng.random(n).astype(np.float32)
+    resched = rng.random(mask.shape) < 0.5
+    self_r = rng.random(len(ids)) < 0.5
+    pr = rng.random(len(ids)).astype(np.float32)
+
+    def both(mod, res_cls, to, **kw):
+        res = res_cls(v_data={}, resched_self=to(self_r),
+                      resched_nbrs=to(resched), priority=to(pr))
+        a, p = mod.consume_and_reschedule(
+            to(active), to(prio), to(ids), to(sel), to(nbrs), to(mask),
+            res, **kw)
+        return np.asarray(a), np.asarray(p)
+
+    want = both(ref_exec, ref_update.UpdateResult, jnp.asarray, sentinel=n)
+    got = both(port_exec, port_update.UpdateResult, torch.from_numpy)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_gather_and_scatter_match_reference():
+    _, edges_fn, _ = ENGINE_GRAPHS["quickstart"]
+    edges = edges_fn()
+    n = 200
+    ref_g = ref_pagerank.make_graph(edges, n)
+    g = interop.graph_from_arrays(*reference_arrays(ref_g), device="cpu")
+    rng, ids, sel, _, _ = _scope_inputs(n=n)
+    vdata = {"x": rng.normal(size=(n, 2)).astype(np.float32)}
+    edata = {"e": rng.normal(size=(len(edges) + 1,)).astype(np.float32)}
+    d = g.max_deg
+    new_v = rng.normal(size=(len(ids), 2)).astype(np.float32)
+    new_e = rng.normal(size=(len(ids), d)).astype(np.float32)
+
+    def both(mod, struct, to):
+        vd = {k: to(v) for k, v in vdata.items()}
+        ed = {k: to(v) for k, v in edata.items()}
+        scope = mod.gather_scopes(struct, vd, ed, to(ids), {})
+        res = mod.UpdateResult(v_data={"x": to(new_v)},
+                               edge_data={"e": to(new_e)},
+                               nbr_data={"x": scope.nbr_data["x"] * 2})
+        v2, e2 = mod.scatter_result(struct, vd, ed, to(ids), to(sel),
+                                    scope, res)
+        return scope, v2, e2
+
+    ws, wv, we = both(ref_update, ref_g, jnp.asarray)
+    gs, gv, ge = both(port_update, g, torch.from_numpy)
+    for f in ("nbr_ids", "nbr_mask", "e_ids", "is_src", "degree"):
+        np.testing.assert_array_equal(getattr(gs, f).numpy(),
+                                      np.asarray(getattr(ws, f)))
+    np.testing.assert_array_equal(gs.nbr_data["x"].numpy(),
+                                  np.asarray(ws.nbr_data["x"]))
+    np.testing.assert_array_equal(gv["x"].numpy(), np.asarray(wv["x"]))
+    # the pad edge row takes masked-off writes in both; compare real rows
+    np.testing.assert_array_equal(ge["e"][:-1].numpy(),
+                                  np.asarray(we["e"])[:-1])
+
+
+def test_route_and_dense_fold_match_reference():
+    n, edges_fn, _ = ENGINE_GRAPHS["quickstart"]
+    ref_g = ref_pagerank.make_graph(edges_fn(), n)
+    g = interop.graph_from_arrays(*reference_arrays(ref_g), device="cpu")
+    rng = np.random.default_rng(5)
+    ids = rng.choice(n, size=60, replace=False).astype(np.int32)
+    sel = rng.random(60) < 0.8
+    w = rng.random((60, g.max_deg)).astype(np.float32)
+    vals = rng.normal(size=(60, g.max_deg, 1)).astype(np.float32)
+    want_w, want_v = ref_exec.route_batch_to_buckets(
+        ref_g.ell, jnp.asarray(ids), jnp.asarray(sel), jnp.asarray(w),
+        jnp.asarray(vals))
+    got_w, got_v = port_exec.route_batch_to_buckets(
+        g.ell, torch.from_numpy(ids), torch.from_numpy(sel),
+        torch.from_numpy(w), torch.from_numpy(vals))
+    for a, b in zip(got_w + got_v, list(want_w) + list(want_v)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    want = ref_exec.bucketed_dense_fold(
+        ref_g.ell, jnp.asarray(ids), jnp.asarray(sel), jnp.asarray(w),
+        jnp.asarray(vals), interpret=True)
+    got = port_exec.bucketed_dense_fold(
+        g.ell, torch.from_numpy(ids), torch.from_numpy(sel),
+        torch.from_numpy(w), torch.from_numpy(vals))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_unported_options_raise(monkeypatch):
+    n, edges_fn, eps = ENGINE_GRAPHS["quickstart"]
+    g, upd, syncs = pagerank.build(edges_fn(), n, eps=eps, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        api.run(g, upd, scheduler="priority", device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        api.run(g, upd, k_select=8, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.run(g, upd)
+
+
+def test_quickstart_example_runs_on_cpu():
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+         "--device", "cpu"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "converged in" in proc.stdout

@@ -1,0 +1,172 @@
+"""The port's ``ell_spmv`` entry points against the reference kernel
+(Pallas, interpret mode) and the plain oracles.
+
+On the CPU the wrappers run the plain slot loop.  Tolerances: bitwise at
+F = 1 in float32.  At F > 1 the reference's interpret-mode kernel is one
+XLA computation, and XLA vectorizes the slot loop over the feature axis
+in ways that differ by an ulp in some elements, so float32 is held to
+rtol = atol = 1e-5 there.  bfloat16 rounds at other places in the two
+frameworks' oracles: 2e-2, the reference's own bf16 tolerance.  The
+kernel itself is held to its plain version on the card, bitwise in
+float32, by ``tests/test_torch_cuda.py`` (and by ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ell_spmv as ref_kernel
+from repro.kernels import ref as ref_oracle
+from repro_torch.kernels import ell_spmv as port
+from repro_torch.kernels import ref as port_oracle
+
+SHAPES = [                       # (nv, deg, rows, feat)
+    (1, 1, 1, 1),                # tests/test_kernels.py's sweep
+    (7, 3, 11, 5),
+    (128, 8, 128, 32),
+    (200, 7, 300, 20),
+    (513, 16, 300, 129),
+    (200, 8, 300, 1),            # PageRank's F = 1
+    (64, 32, 100, 1),
+    (300, 2, 300, 1),
+]
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
+          "bf16": (None, jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(nv, deg, rows, feat, seed=None, with_mask=True):
+    rng = np.random.default_rng(nv * 7 + deg if seed is None else seed)
+    nbrs = rng.integers(0, rows, (nv, deg)).astype(np.int32)
+    w = (rng.random((nv, deg)) * (rng.random((nv, deg)) < 0.7))
+    x = rng.normal(size=(rows, feat))
+    mask = rng.random(nv) < 0.8 if with_mask else None
+    return nbrs, w, x, mask
+
+
+def _to_jax(a, jdt):
+    return None if a is None else jnp.asarray(a, jdt)
+
+
+def _to_torch(a, tdt):
+    return None if a is None else torch.from_numpy(np.asarray(a)).to(tdt)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("nv,deg,rows,feat", SHAPES)
+def test_ell_spmv_matches_reference_kernel(nv, deg, rows, feat, dtype):
+    _, jdt, tdt = DTYPES[dtype]
+    nbrs, w, x, mask = _inputs(nv, deg, rows, feat)
+    want = ref_kernel.ell_spmv(jnp.asarray(nbrs), _to_jax(w, jdt),
+                               _to_jax(x, jdt), jnp.asarray(mask),
+                               interpret=True)
+    got = port.ell_spmv(torch.from_numpy(nbrs), _to_torch(w, tdt),
+                        _to_torch(x, tdt), torch.from_numpy(mask))
+    assert got.dtype == tdt and got.shape == (nv, feat)
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    tol = 1e-5 if dtype == "f32" else 2e-2
+    if dtype == "f32" and feat == 1:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    # the float32 oracle on the same (dtype-rounded) inputs
+    oracle = port_oracle.ell_spmv_ref(
+        torch.from_numpy(nbrs), _to_torch(w, tdt).float(),
+        _to_torch(x, tdt).float(), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("nv,deg,rows,feat", SHAPES[:5])
+def test_port_oracle_matches_reference_oracle(nv, deg, rows, feat):
+    nbrs, w, x, mask = _inputs(nv, deg, rows, feat)
+    want = ref_oracle.ell_spmv_ref(jnp.asarray(nbrs), jnp.asarray(w, jnp.float32),
+                                   jnp.asarray(x, jnp.float32),
+                                   jnp.asarray(mask))
+    got = port_oracle.ell_spmv_ref(torch.from_numpy(nbrs),
+                                   _to_torch(w, torch.float32),
+                                   _to_torch(x, torch.float32),
+                                   torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,d,f", [(5, 3, 1), (40, 16, 1), (33, 62, 1),
+                                   (12, 7, 6)])
+def test_ell_fold_matches_reference(b, d, f):
+    rng = np.random.default_rng(b + d)
+    w = (rng.random((b, d)) * (rng.random((b, d)) < 0.6)).astype(np.float32)
+    vals = rng.normal(size=(b, d, f)).astype(np.float32)
+    mask = rng.random(b) < 0.7
+    want = np.asarray(ref_kernel.ell_fold(jnp.asarray(w), jnp.asarray(vals),
+                                          jnp.asarray(mask), interpret=True))
+    got = port.ell_fold(torch.from_numpy(w), torch.from_numpy(vals),
+                        torch.from_numpy(mask)).numpy()
+    if f == 1:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_bucketed_and_batched_match_reference():
+    rng = np.random.default_rng(3)
+    rows, feat = 120, 1
+    nbrs_b, w_b, m_b = [], [], []
+    for nvb, wd in [(50, 2), (0, 4), (25, 4), (9, 9)]:
+        nbrs_b.append(rng.integers(0, rows, (nvb, wd)).astype(np.int32))
+        w_b.append(rng.random((nvb, wd)).astype(np.float32))
+        m_b.append(rng.random(nvb) < 0.5)
+    x = rng.normal(size=(rows, feat)).astype(np.float32)
+    want = ref_kernel.ell_spmv_bucketed(
+        [jnp.asarray(a) for a in nbrs_b], [jnp.asarray(a) for a in w_b],
+        jnp.asarray(x), [jnp.asarray(a) for a in m_b], interpret=True)
+    got = port.ell_spmv_bucketed(
+        [torch.from_numpy(a) for a in nbrs_b],
+        [torch.from_numpy(a) for a in w_b], torch.from_numpy(x),
+        [torch.from_numpy(a) for a in m_b])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = ref_kernel.ell_spmv_batched(jnp.asarray(nbrs_b[0]),
+                                       jnp.asarray(w_b[0]), jnp.asarray(x),
+                                       interpret=True)
+    got = port.ell_spmv_batched(torch.from_numpy(nbrs_b[0]),
+                                torch.from_numpy(w_b[0]), torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_plain_version_rounds_each_product_then_adds_in_slot_order():
+    # (1 + 2^-12)^2 = 1 + 2^-11 + 2^-24 rounds to 1 + 2^-11 in float32;
+    # slot 0 adds -(1 + 2^-11) first, so rounding the product gives 0
+    # exactly, where a fused multiply-add would leave 2^-24
+    e = 1.0 + 2.0 ** -12
+    nbrs = torch.tensor([[0, 1]], dtype=torch.int32)
+    w = torch.tensor([[1.0, e]])
+    x = torch.tensor([[-(1.0 + 2.0 ** -11)], [e]])
+    assert port.ell_spmv(nbrs, w, x).item() == 0.0
+    masked = port.ell_spmv(nbrs, w, x, row_mask=torch.tensor([False]))
+    assert masked.item() == 0.0
+
+
+def test_wrapper_rejects_other_devices_and_mixed_inputs():
+    nbrs = torch.zeros((2, 2), dtype=torch.int32)
+    w = torch.zeros((2, 2))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        port.ell_spmv(nbrs.to("meta"), w.to("meta"),
+                      torch.zeros((3, 1), device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        port.ell_spmv(nbrs, w.to("meta"), torch.zeros((3, 1)))
+
+
+@pytest.mark.parametrize("args,msg", [
+    ((torch.zeros((2, 2)), torch.zeros((2, 2)), torch.zeros((3, 1)), None),
+     "int32"),
+    ((torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2, 3)),
+      torch.zeros((3, 1)), None), "match"),
+    ((torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2, 2)),
+      torch.zeros((3, 1), dtype=torch.float64), None), "dtype"),
+    ((torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2, 2)),
+      torch.zeros((3, 4))[:, ::2], None), "contiguous"),
+    ((torch.zeros((2, 2), dtype=torch.int32), torch.zeros((2, 2)),
+      torch.zeros((3, 1)), torch.ones(3, dtype=torch.bool)), "row_mask"),
+])
+def test_cuda_argument_checks(args, msg):
+    with pytest.raises(ValueError, match=msg):
+        port._check_cuda_args(*args)
