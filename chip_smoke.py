@@ -5,23 +5,42 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. build    — compile every CUDA source of the port with nvcc;
-2. kernels  — each kernel against its plain PyTorch version on the card,
-              at the main path's full-size shapes (every degree bucket of
-              the 2,097,152-vertex Zipf graph at F=1, one ``ell_fold``
-              shape, F=32, bf16): float32 bitwise, bf16 within 2e-2; with
-              CUDA-event times beside the plain version, one library call
-              (``torch.sparse.mm`` on the same matrix in CSR) and the
-              least time the card could take (the bound);
-3. parity   — PageRank on the 2,000-vertex Zipf graph through
-              ``api.run``, on the GPU and on the CPU: ranks, counts and
-              syncs bitwise equal; kernel arm == dense arm on the GPU;
-4. main     — PageRank to convergence (eps=1e-4) on the full-size graph
-              through ``api.run``, with the launch counts set to 0 just
-              before and read just after; the fixed point, the top-2 and
-              total-rank syncs checked against float64 on the host;
-5. report   — a ``{"kernels": [...]}`` line, then the contract line
-              ``{"ok": true, "device": {...}}`` last.
+1. build       — compile every CUDA source of the port with nvcc, all at
+                 once;
+2. kernels     — ``ell_spmv`` against its plain PyTorch version on the
+                 card, at the PageRank path's full-size shapes (every
+                 degree bucket of the 2,097,152-vertex Zipf graph at F=1,
+                 one ``ell_fold`` shape, F=32, bf16): float32 bitwise,
+                 bf16 within 2e-2; with CUDA-event times beside the plain
+                 version, one library call (``torch.sparse.mm`` on the
+                 same matrix in CSR) and the least time the card could
+                 take (the bound);
+3. parity      — PageRank on the 2,000-vertex Zipf graph through
+                 ``api.run``, on the GPU and on the CPU: ranks, counts and
+                 syncs bitwise equal; kernel arm == dense arm on the GPU;
+4. main        — PageRank to convergence (eps=1e-4) on the full-size graph
+                 through ``api.run``, with the launch counts set to 0 just
+                 before and read just after; the fixed point, the top-2
+                 and total-rank syncs checked against float64 on the host;
+5. als kernels — ``als_normal_eq`` against its plain version, float32
+                 bitwise, at the ALS path's full-size shapes (the fold of
+                 each color phase, every degree bucket with x = w and
+                 ``als_normal_eq_bucketed`` over them all, and d = 5
+                 and d = 64 at the widest bucket's shape), timed
+                 beside the plain version, one library call
+                 (``torch.bmm``) and the bound;
+6. als parity  — ALS on 2,000 users x 500 movies (d = 20) through
+                 ``api.run`` on the GPU and on the CPU: the normal
+                 equations bitwise, factors and sync RMSE within 1e-4 /
+                 1e-5 (the LU solves are cuSOLVER's and LAPACK's);
+7. als main    — ALS at the paper's Netflix width (17,770 movies, d = 20,
+                 Netflix's density) over a tenth of its users (48,019),
+                 10 alternating sweeps at lam = 0.01, launch counts set
+                 to 0 just before and read just after; the sync RMSE, the
+                 factors and 1,000 movies' normal equations checked in
+                 float64 on the host;
+8. report      — a ``{"kernels": [...]}`` line, then the contract line
+                 ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
 """
@@ -38,6 +57,25 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 FULL_N = 2 ** 21
 EPS = 1e-4
 L2_FLUSH_BYTES = 128 << 20     # > the 50 MB L2: launches are timed cold
+# ALS: the paper's Netflix shape (all 17,770 movies, Netflix's density,
+# d = 20) over a tenth of its 480,189 users
+NETFLIX_USERS, NETFLIX_MOVIES, NETFLIX_RATINGS = 480_189, 17_770, 100_480_507
+ALS_USERS = 48_019
+ALS_DENSITY = NETFLIX_RATINGS / (NETFLIX_USERS * NETFLIX_MOVIES)
+ALS_D, ALS_NOISE, ALS_SUPERSTEPS = 20, 0.1, 10
+# ridge lam * n_obs: synthetic_netflix draws factors with variance 1/d a
+# component, and the alternating sweeps then shrink the factors' scale s
+# to s^2 = 1 - lam * d; lam = 0.05 at d = 20 is the collapse point (the
+# factors go to 0 and the RMSE stays at the zero predictor's), 0.01
+# keeps s^2 = 0.8
+ALS_LAM = 0.01
+ALS_CHECKED_MOVIES = 1000
+# a movie's float32 factor against the float64 solve of its normal
+# equations: A and b sum ~565 products in order (relative rounding
+# ~sqrt(565) * 6e-8 = 1.4e-6 typical), A is well conditioned (the ridge
+# and d << ratings; its condition number is printed), and the float32 LU
+# adds ~d * 6e-8; 1e-4 leaves an order of magnitude above that
+ALS_FACTOR_RTOL = 1e-4
 
 
 def cuda_device(torch):
@@ -276,33 +314,39 @@ def phase_parity(torch, ctx):
     log("2k Zipf: GPU == CPU bitwise, kernel == dense bitwise")
 
 
-def layer_breakdown(torch, engine):
-    """Seconds per layer of one fresh superstep, each layer bracketed
-    by synchronizes (so layers do not overlap; the sum is a little more
-    than an unbracketed superstep)."""
+def pagerank_layers():
+    """``(owner, attribute, label)`` of each layer PageRank's superstep
+    is split into."""
     import repro_torch.core.exec as ex
     from repro_torch.core.graph import SlicedEll
+    names = ["gather_scopes", "route_batch_to_buckets", "ell_spmv_bucketed",
+             "_owner_rows", "scatter_result", "consume_and_reschedule",
+             "refresh_syncs"]
+    return ([(ex, k, k) for k in names]
+            + [(SlicedEll, "row_activation", "row_activation")])
+
+
+def layer_breakdown(torch, engine, layers):
+    """Seconds per layer of one fresh superstep, each layer (an
+    ``(owner, attribute, label)`` triple) bracketed by synchronizes (so
+    layers do not overlap; the sum is a little more than an unbracketed
+    superstep)."""
     acc = {}
 
-    def timed(name, fn):
+    def timed(label, fn):
         def inner(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+            acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
             return out
         return inner
 
-    names = ["gather_scopes", "route_batch_to_buckets", "ell_spmv_bucketed",
-             "_owner_rows", "scatter_result", "consume_and_reschedule",
-             "refresh_syncs"]
-    saved = {k: getattr(ex, k) for k in names}
-    saved_act = SlicedEll.row_activation
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in layers]
     try:
-        for k in names:
-            setattr(ex, k, timed(k, saved[k]))
-        SlicedEll.row_activation = timed("row_activation", saved_act)
+        for (owner, attr, label), (_, _, fn) in zip(layers, saved):
+            setattr(owner, attr, timed(label, fn))
         state = engine.init_state()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -310,10 +354,9 @@ def layer_breakdown(torch, engine):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for k in names:
-            setattr(ex, k, saved[k])
-        SlicedEll.row_activation = saved_act
-    acc["other (combine, select, host)"] = total - sum(acc.values())
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    acc["other (update body, select, host)"] = total - sum(acc.values())
     return total, acc
 
 
@@ -358,7 +401,7 @@ def phase_main(torch, ctx):
     wall = time.perf_counter() - t0
     launches = ell_spmv.launches
     peak = torch.cuda.max_memory_allocated()
-    ctx["launches"] = {"ell_spmv": launches}
+    ctx.setdefault("launches", {})["ell_spmv"] = launches
     log(f"full size: converged={not res.active_any} in {res.superstep} "
         f"supersteps, {res.n_updates} updates, {wall:.3f} s "
         f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), "
@@ -390,12 +433,17 @@ def phase_main(torch, ctx):
     if rel >= 1e-4:
         raise AssertionError(f"total_rank off by {rel} relative")
 
-    engine = res.engine
-    total_s, layers = layer_breakdown(torch, engine)
+    report_superstep(torch, res.engine, pagerank_layers())
+
+
+def report_superstep(torch, engine, layers):
+    """Log one fresh superstep's layer breakdown and, under
+    torch.profiler, the device's idle share."""
+    total_s, acc = layer_breakdown(torch, engine, layers)
     log(f"one fresh superstep, layers bracketed by synchronize: "
         f"{1e3 * total_s:.2f} ms")
-    for k, v in sorted(layers.items(), key=lambda kv: -kv[1]):
-        log(f"  {k:<32} {1e3 * v:9.2f} ms  {100 * v / total_s:5.1f}%")
+    for k, v in sorted(acc.items(), key=lambda kv: -kv[1]):
+        log(f"  {k:<34} {1e3 * v:9.2f} ms  {100 * v / total_s:5.1f}%")
     try:
         wall_s, busy_s, top = device_busy(torch, engine)
     except Exception:            # the profiler is optional here
@@ -409,6 +457,316 @@ def phase_main(torch, ctx):
             f"idle share {max(0.0, 1 - busy_s / wall_s):.3f}")
         for t, name in top:
             log(f"  {t / 1e3:9.2f} ms  {name[:70]}")
+
+
+def als_bound(nv, width, real, rows, d, fold=False):
+    """Least time for one als_normal_eq call: the larger of the bytes it
+    must move (the mask byte of every slot, the rating and, unless the
+    call is a fold, whose identity index the wrapper makes, the index of
+    every real slot, the ``rows`` distinct rows of x its real slots
+    read, A and b written once) over the HBM rate and its flops (a
+    multiply and an add for each of the d(d+1) outputs of every real
+    slot) over the float32 rate."""
+    nbytes = (nv * width + real * (4 if fold else 8) + rows * d * 4
+              + nv * d * (d + 1) * 4)
+    flops = real * 2 * d * (d + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def color_scope(torch, graph, color):
+    """The dense scope one chromatic phase of ALS gathers: the color's
+    vertices padded to the largest color, at ``[Cmax, max_deg]``."""
+    from repro_torch.core.exec import build_color_batches
+    from repro_torch.core.update import gather_scopes
+    ids, _ = build_color_batches(graph.colors.cpu().numpy())
+    ids = torch.from_numpy(ids[color]).to(graph.device)
+    return gather_scopes(graph, graph.vertex_data, graph.edge_data, ids, {})
+
+
+def als_case(torch, label, nbrs, mask, r, x, flush, fold=False):
+    """``als_normal_eq`` at one shape against its plain version (float32
+    bitwise), timed beside the plain version, the library call and the
+    bound.  With ``fold``, ``x`` is the gathered scope ``[B*D, d]`` and
+    the kernel runs through ``als_normal_eq_fold``, as the ALS update
+    calls it."""
+    from repro_torch.kernels.als_normal_eq import (als_normal_eq,
+                                                   als_normal_eq_fold,
+                                                   als_normal_eq_plain)
+    nv, width = mask.shape
+    d = x.shape[1]
+    if fold:
+        X = x.view(nv, width, d)
+        kern = lambda: als_normal_eq_fold(mask, r, X)
+    else:
+        kern = lambda: als_normal_eq(nbrs, mask, r, x)
+    plain = lambda: als_normal_eq_plain(nbrs, mask, r, x)
+    a, b = kern()
+    ap, bp = plain()
+    torch.cuda.synchronize()
+    mism = int((a != ap).sum()) + int((b != bp).sum())
+    err = max(float((a - ap).abs().max()), float((b - bp).abs().max()))
+    if mism:
+        raise AssertionError(f"als_normal_eq {label}: {mism} elements "
+                             f"differ from the plain version (max {err})")
+    # the library yardstick: two batched products of the gathered,
+    # masked rows (formed outside the timing), which the port never calls
+    xm = (X if fold else x[nbrs.long()]) * mask[..., None]
+    rm = (r * mask)[..., None]
+    xt = xm.transpose(1, 2)
+    lib = lambda: (torch.bmm(xt, xm), torch.bmm(xt, rm))
+    la, lb = lib()
+    lib_err = max(float((la - a).abs().max()), float((lb[..., 0] - b).abs()
+                                                     .max()))
+    del la, lb
+    ms, call_ms = time_cuda(torch, kern, 10, flush)
+    plain_ms, _ = time_cuda(torch, plain, 1, flush)
+    lib_ms, _ = time_cuda(torch, lib, 10, flush)
+    del xm, rm, xt
+    real = int(mask.sum())
+    rows = touched_rows(torch, nbrs, mask)
+    bms, by = als_bound(nv, width, real, rows, d, fold)
+    log(f"{label:<22} [{nv:>6}, {width:>4}] d={d:<3} real {real:>9}: "
+        f"{ms:9.4f} ms ({call_ms:.4f} with the host), plain "
+        f"{plain_ms:9.4f}, library {lib_ms:8.4f} (max |diff| "
+        f"{lib_err:.1e}), bound {bms:.4f} ({by}), mismatches {mism}")
+    return dict(label=label, nv=nv, width=width, d=d, real=real, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
+def phase_als_kernels(torch, ctx):
+    """als_normal_eq vs plain version at the ALS path's shapes."""
+    from repro_torch.kernels.als_normal_eq import (als_normal_eq_bucketed,
+                                                   als_normal_eq_plain)
+    prob = ctx["als_problem"]
+    graph, ell, d = prob.graph, prob.graph.ell, prob.d
+    dev = ctx["dev"]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    log("times: device ms (call ms with the host's enqueue), L2 flushed")
+    folds = []
+    for c in range(graph.n_colors):
+        scope = color_scope(torch, graph, c)
+        X = scope.nbr_data["w"]
+        mask, r = scope.nbr_mask, scope.edge_data["rating"]
+        del scope
+        nv, width = mask.shape
+        idx = (torch.arange(nv, dtype=torch.int32, device=dev)[:, None]
+               * width + torch.arange(width, dtype=torch.int32, device=dev))
+        folds.append(als_case(torch, f"fold, color {c}", idx, mask, r,
+                              X.view(nv * width, d), flush, fold=True))
+        del X, mask, r, idx
+    ratings = graph.edge_data["rating"]
+    r_blocks = [ratings[e.long()].contiguous() for e in ell.edge_ids]
+    w = graph.vertex_data["w"]
+    buckets = [als_case(torch, f"bucket {b} (x = w)", ell.nbrs[b],
+                        ell.nbr_mask[b], r_blocks[b], w, flush)
+               for b in range(ell.n_buckets)]
+    # the bucketed entry point makes exactly those launches
+    got = als_normal_eq_bucketed(ell.nbrs, ell.nbr_mask, r_blocks, w)
+    plain = [als_normal_eq_plain(*blk, w)
+             for blk in zip(ell.nbrs, ell.nbr_mask, r_blocks)]
+    for g, p in zip(got, map(torch.cat, zip(*plain))):
+        if not torch.equal(g, p):
+            raise AssertionError("als_normal_eq_bucketed differs from the "
+                                 "plain version")
+    log(f"als_normal_eq_bucketed over all {ell.n_buckets} buckets: "
+        f"A {tuple(got[0].shape)}, b {tuple(got[1].shape)}, bitwise equal "
+        f"to the plain version")
+    del got, plain
+    log(f"one bucketed sweep (sum over buckets): kernel "
+        f"{sum(c['ms'] for c in buckets):.4f} ms, plain "
+        f"{sum(c['plain_ms'] for c in buckets):.4f} ms, library "
+        f"{sum(c['library_ms'] for c in buckets):.4f} ms, bound "
+        f"{sum(c['bound_ms'] for c in buckets):.4f} ms")
+    b = max(range(ell.n_buckets), key=lambda i: ell.bucket_launches[i][0]
+            * ell.bucket_launches[i][1])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    others = []
+    for dd in (5, 64):
+        x = torch.randn((graph.n_vertices, dd), generator=gen, device=dev)
+        others.append(als_case(torch, f"bucket {b}, d={dd}", ell.nbrs[b],
+                               ell.nbr_mask[b], r_blocks[b], x, flush))
+    ctx["als_cases"] = folds + buckets + others
+    ctx["als_folds"] = folds
+
+
+def normal_equations(torch, graph, color):
+    """``(A, b)`` of one ALS color phase on ``graph``'s current factors."""
+    from repro_torch.kernels.als_normal_eq import als_normal_eq_fold
+    scope = color_scope(torch, graph, color)
+    return als_normal_eq_fold(scope.nbr_mask, scope.edge_data["rating"],
+                              scope.nbr_data["w"])
+
+
+def phase_als_parity(torch, ctx):
+    """ALS on 2,000 x 500: GPU vs CPU, normal equations bitwise."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.apps import als
+    from repro_torch.kernels.als_normal_eq import als_normal_eq
+    dev = ctx["dev"]
+    prob = als.synthetic_netflix(2000, 500, d=ALS_D, density=0.02,
+                                 noise=ALS_NOISE, seed=0, device="cpu")
+    g, upd, syncs = als.build(prob, lam=ALS_LAM, eps=0.0)
+    cpu = api.run(g, upd, syncs=syncs, device="cpu", num_supersteps=5)
+    before = als_normal_eq.launches
+    gpu = api.run(g, upd, syncs=syncs, device=dev, num_supersteps=5)
+    launched = als_normal_eq.launches - before
+    # the same factors (initial, then the GPU run's final ones) on both
+    # devices: the kernel's normal equations equal the plain version's
+    n_cmp = 0
+    for vdata in (g.vertex_data, gpu.vertex_data):
+        gv = dataclasses.replace(g, vertex_data={
+            k: v.cpu() for k, v in vdata.items()})
+        for c in range(g.n_colors):
+            a_c, b_c = normal_equations(torch, gv, c)
+            a_g, b_g = normal_equations(torch, gv.to(dev), c)
+            if not (torch.equal(a_g.cpu(), a_c)
+                    and torch.equal(b_g.cpu(), b_c)):
+                raise AssertionError(f"normal equations of color {c} differ"
+                                     " between the GPU and the CPU")
+            n_cmp += 1
+    wc, wg = cpu.vertex_data["w"], gpu.vertex_data["w"].cpu()
+    werr = float((wc - wg).abs().max())
+    rc, rg = float(cpu.globals["rmse"]), float(gpu.globals["rmse"])
+    log(f"2,000 x 500 ALS ({g.n_edges} ratings, d={ALS_D}): cpu "
+        f"{cpu.superstep} supersteps / {cpu.n_updates} updates, gpu "
+        f"{gpu.superstep} / {gpu.n_updates}; als_normal_eq launches "
+        f"{launched}; normal equations bitwise in {n_cmp} phases; factors "
+        f"max |diff| {werr:.2e}; sync RMSE cpu {rc} gpu {rg}")
+    if (cpu.superstep, cpu.n_updates) != (gpu.superstep, gpu.n_updates):
+        raise AssertionError("GPU and CPU ALS counts differ")
+    if launched <= 0:
+        raise AssertionError("the GPU ALS run never launched als_normal_eq")
+    torch.testing.assert_close(wg, wc, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(rg, rc, rtol=1e-5, atol=0.0)
+
+
+def rmse64(pairs, ratings, w, n_users, chunk=1 << 22):
+    """Float64 RMSE of factors ``w`` over every rating."""
+    import numpy as np
+    se = 0.0
+    for s in range(0, len(pairs), chunk):
+        p = pairs[s:s + chunk]
+        pred = np.einsum("ed,ed->e", w[p[:, 0]], w[p[:, 1] + n_users])
+        se += float(np.sum((pred - ratings[s:s + chunk]) ** 2))
+    return (se / max(len(pairs), 1)) ** 0.5
+
+
+def phase_als_main(torch, ctx):
+    """ALS at Netflix width through api.run, counted and checked."""
+    import numpy as np
+
+    import repro_torch.apps.als as als_mod
+    import repro_torch.core.exec as ex
+    from repro_torch import api
+    from repro_torch.apps import als
+    from repro_torch.kernels.als_normal_eq import als_normal_eq
+    from repro_torch.kernels.ell_spmv import ell_spmv
+    prob = ctx["als_problem"]
+    g, upd, syncs = als.build(prob, lam=ALS_LAM, eps=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ell_spmv.launches = 0
+    als_normal_eq.launches = 0
+    t0 = time.perf_counter()
+    res = api.run(g, upd, syncs=syncs, device=ctx["dev"],
+                  num_supersteps=ALS_SUPERSTEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = als_normal_eq.launches
+    ctx.setdefault("launches", {})["als_normal_eq"] = launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"full-width ALS: {res.superstep} supersteps, {res.n_updates} "
+        f"updates ({g.n_vertices} vertices), {wall:.3f} s "
+        f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), "
+        f"als_normal_eq launches {launches} (expected "
+        f"{2 * ALS_SUPERSTEPS}: 2 colors a superstep), ell_spmv launches "
+        f"{ell_spmv.launches}, peak device memory {peak / 2**30:.2f} GiB")
+    if launches <= 0:
+        raise AssertionError("the ALS path never launched als_normal_eq")
+
+    n_users, d = prob.n_users, prob.d
+    w = res.vertex_data["w"].cpu().numpy()
+    if w.shape != (g.n_vertices, d) or not np.isfinite(w).all():
+        raise AssertionError("factors are not finite or have the wrong "
+                             "shape")
+    w64 = w.astype(np.float64)
+    r64 = prob.ratings.astype(np.float64)
+    exact = rmse64(prob.pairs, r64, w64, n_users)
+    w_init = g.vertex_data["w"].cpu().numpy()
+    initial = rmse64(prob.pairs, r64, w_init.astype(np.float64), n_users)
+    sync = float(res.globals["rmse"])
+    rel = abs(sync - exact) / exact
+    log(f"full-width ALS: sync RMSE {sync} vs float64 {exact:.7f} (rel "
+        f"{rel:.2e}, limit 1e-3); float32 dataset_rmse "
+        f"{als.dataset_rmse(prob, res.vertex_data):.7f}; initial factors' "
+        f"RMSE {initial:.7f}")
+    if rel > 1e-3:
+        raise AssertionError(f"sync RMSE off the float64 RMSE by {rel}")
+    # r = <u, v> + noise with var <u, v> = 1/d = 0.05 and noise 0.1: a fit
+    # reaches ~0.1, about 0.41 of the zero predictor's RMSE
+    zero = float(np.sqrt(np.mean(r64 ** 2)))
+    log(f"full-width ALS: the zero predictor's RMSE {zero:.7f}; ALS's is "
+        f"{exact / zero:.3f} of it (limit 0.5)")
+    if not exact < initial or not exact < 0.5 * zero:
+        raise AssertionError("ALS did not learn the low-rank ratings")
+
+    # 1,000 movies: factor == float64 solve of its normal equations
+    # against the final user factors
+    order = np.argsort(prob.pairs[:, 1], kind="stable")
+    starts = np.searchsorted(prob.pairs[order, 1],
+                             np.arange(prob.n_movies + 1))
+    sample = np.random.default_rng(0).choice(
+        prob.n_movies, min(ALS_CHECKED_MOVIES, prob.n_movies), replace=False)
+    worst, conds = 0.0, []
+    for m in sample:
+        e = order[starts[m]:starts[m + 1]]
+        if len(e) == 0:          # an unrated movie keeps its factor
+            if not np.array_equal(w[n_users + m], w_init[n_users + m]):
+                raise AssertionError(f"unrated movie {m} changed its factor")
+            continue
+        users = w64[prob.pairs[e, 0]]
+        a = users.T @ users + ALS_LAM * len(e) * np.eye(d)
+        want = np.linalg.solve(a, users.T @ r64[e])
+        got = w64[n_users + m]
+        worst = max(worst, float(np.linalg.norm(got - want)
+                                 / np.linalg.norm(want)))
+        conds.append(float(np.linalg.cond(a)))
+    log(f"full-width ALS: {len(sample)} movies against float64 solves: "
+        f"max relative error {worst:.3e} (limit {ALS_FACTOR_RTOL:.0e}); "
+        f"condition numbers {min(conds, default=0):.1f}.."
+        f"{max(conds, default=0):.1f}")
+    if worst > ALS_FACTOR_RTOL:
+        raise AssertionError(f"movie factors off their float64 solves by "
+                             f"{worst} relative")
+    report_superstep(torch, res.engine, [
+        (ex, "gather_scopes", "gather_scopes"),
+        (als_mod, "als_normal_eq_fold", "als_normal_eq_fold (the kernel)"),
+        (torch.linalg, "solve_ex", "solve_ex (LU solve)"),
+        (ex, "scatter_result", "scatter_result (write-back)"),
+        (ex, "consume_and_reschedule", "consume_and_reschedule"),
+        (ex, "refresh_syncs", "refresh_syncs")])
+
+
+def setup_als(torch, ctx):
+    """The full-width ALS problem, built on the host from its seed."""
+    from repro_torch.apps import als
+    t0 = time.perf_counter()
+    prob = als.synthetic_netflix(ALS_USERS, NETFLIX_MOVIES, d=ALS_D,
+                                 density=ALS_DENSITY, noise=ALS_NOISE,
+                                 seed=0, device=ctx["dev"])
+    torch.cuda.synchronize()
+    g = prob.graph
+    log(f"full-width ALS problem: {prob.n_users} users x {prob.n_movies} "
+        f"movies (density {ALS_DENSITY:.6f}), {g.n_edges} ratings, "
+        f"{g.n_vertices} vertices, d={prob.d}, max degree {g.max_deg}, "
+        f"buckets {g.ell.bucket_launches}; host set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    ctx["als_problem"] = prob
 
 
 def main() -> int:
@@ -438,7 +796,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     try:
-        logs = _build.build(["ell_spmv"])
+        logs = _build.build(["ell_spmv", "als_normal_eq"])
         log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
         for name, text in logs.items():
             for line in text.splitlines():
@@ -467,7 +825,11 @@ def main() -> int:
 
     for name, fn in (("phase 2 kernels", phase_kernels),
                      ("phase 3 parity", phase_parity),
-                     ("phase 4 main path", phase_main)):
+                     ("phase 4 main path", phase_main),
+                     ("als set-up", setup_als),
+                     ("phase 5 als kernels", phase_als_kernels),
+                     ("phase 6 als parity", phase_als_parity),
+                     ("phase 7 als main path", phase_als_main)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:
@@ -492,6 +854,18 @@ def main() -> int:
         "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
         "library_ms": tot["library_ms"],
     }]
+    folds = ctx["als_folds"]
+    kernels.append({
+        "name": "als_normal_eq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/als_normal_eq.cu",
+        "replaces": "src/repro/kernels/als_normal_eq.py:26",
+        "launches": ctx["launches"]["als_normal_eq"],
+        "max_abs_err": max(c["max_abs_err"] for c in ctx["als_cases"]),
+        # the main path's launches of one superstep: one fold per color
+        **{k: sum(c[k] for c in folds)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "/".join(sorted({c["bound_by"] for c in folds})),
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

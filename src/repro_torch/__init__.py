@@ -3,11 +3,14 @@
 The package mirrors ``repro``'s module names so each counterpart is easy
 to find (``repro_torch.core.graph`` <-> ``repro.core.graph``, ...).  It
 imports ``torch`` and ``numpy`` only — never ``jax`` and never ``repro``
-— so it installs on a GPU host without JAX.  The one hot loop of the
-main path, the sliced-ELL neighbour aggregation, is a hand-written CUDA
-kernel (``kernels/csrc/ell_spmv.cu``) built with ``nvcc`` at first use.
+— so it installs on a GPU host without JAX.  The hot loops of the
+ported paths are hand-written CUDA kernels built with ``nvcc`` at first
+use: the sliced-ELL neighbour aggregation of PageRank
+(``kernels/csrc/ell_spmv.cu``) and ALS's normal equations
+(``kernels/csrc/als_normal_eq.cu``).
 
-Entry points (``api.run``, ``DataGraph.from_edges``, ``pagerank.build``)
+Entry points (``api.run``, ``DataGraph.from_edges``, ``pagerank.build``,
+``als.synthetic_netflix``)
 put tensors on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit device they raise instead of running on the CPU.
 """

@@ -1,1 +1,17 @@
-"""Applications of the port (PageRank so far; the rest is ROADMAP A5)."""
+"""Applications of the port (PageRank and ALS so far; the rest is
+ROADMAP A5).
+
+Every app module exposes the reference's three-part surface:
+``make_update(...)``, a graph or problem builder with its sync ops, and
+``build(...) -> (graph, update, syncs)``, the triple
+``repro_torch.api.run`` consumes.
+"""
+from repro_torch.apps import als, pagerank
+
+#: name -> uniform ``build(...) -> (graph, update, syncs)`` helper
+BUILDERS = {
+    "pagerank": pagerank.build,
+    "als": als.build,
+}
+
+__all__ = ["als", "pagerank", "BUILDERS"]

@@ -1,11 +1,11 @@
 """Vertex colorings for the chromatic engine (paper §4.2.1).
 
-A copy of ``repro.core.coloring``'s greedy coloring: the same first-fit
-rule in the same largest-degree-first order, so the colors are
-identical.  Host-side numpy; the adjacency is a CSR built with numpy
-instead of Python lists of lists, which changes the speed and not the
-result (the set of colors a vertex sees does not depend on the order
-its neighbours are listed in).
+A copy of ``repro.core.coloring``'s greedy and bipartite colorings:
+the same first-fit rule in the same largest-degree-first order, so the
+colors are identical.  Host-side numpy; the adjacency is a CSR built
+with numpy instead of Python lists of lists, which changes the speed
+and not the result (the set of colors a vertex sees does not depend on
+the order its neighbours are listed in).
 """
 from __future__ import annotations
 
@@ -43,6 +43,13 @@ def greedy_coloring(n_vertices: int, edges: np.ndarray,
             c += 1
         colors[v] = c
     return np.asarray(colors, dtype=np.int32)
+
+
+def bipartite_coloring(n_left: int, n_vertices: int) -> np.ndarray:
+    """Two-coloring of a bipartite graph with left block [0, n_left)."""
+    colors = np.zeros(n_vertices, dtype=np.int32)
+    colors[n_left:] = 1
+    return colors
 
 
 def verify_coloring(n_vertices: int, edges: np.ndarray, colors: np.ndarray,

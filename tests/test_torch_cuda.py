@@ -1,23 +1,28 @@
-"""The port's CUDA kernel and its GPU runs, on a card.
+"""The port's CUDA kernels and its GPU runs, on a card.
 
 This file imports no JAX, so it runs on a GPU host that has only the
 port installed:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Without a CUDA device every test skips.  The kernel is held to its
+Without a CUDA device every test skips.  Each kernel is held to its
 plain PyTorch version on the same card (bitwise in float32, 2e-2 in
 bfloat16), and PageRank on the GPU to the same PageRank on the CPU,
-bitwise: the kernel's products and adds are unfused, as the CPU's eager
-slot loop is.
+bitwise: the kernels' products and adds are unfused, as the CPU's eager
+slot loops are.  ALS on the GPU equals ALS on the CPU bitwise in its
+normal equations; its factors pass through cuSOLVER's LU on the card and
+LAPACK's on the CPU, so they are held to rtol = 1e-4, atol = 1e-5.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.apps import pagerank
+from repro_torch.apps import als, pagerank
+from repro_torch.core.exec import build_color_batches
 from repro_torch.core.graph import zipf_edges
+from repro_torch.core.update import gather_scopes
+from repro_torch.kernels import als_normal_eq as als_port
 from repro_torch.kernels import ell_spmv as port
 
 SHAPES = [                       # (nv, deg, rows, feat)
@@ -107,3 +112,122 @@ def test_gpu_pagerank_equals_cpu_pagerank_bitwise(cuda, use_kernel):
     assert torch.equal(gpu.vertex_data["rank"].cpu(), cpu.vertex_data["rank"])
     assert (gpu.superstep, gpu.n_updates) == (cpu.superstep, cpu.n_updates)
     assert gpu.globals["total_rank"].item() == cpu.globals["total_rank"].item()
+
+
+ALS_SHAPES = [                   # (nv, deg, rows, d)
+    (1, 1, 2, 4),
+    (50, 5, 60, 4),
+    (130, 9, 100, 5),
+    (257, 40, 300, 16),
+    (200, 70, 300, 20),
+    (64, 33, 100, 64),
+    (300, 1, 50, 20),
+    (5, 0, 3, 4),                # no slots: A and b are 0
+    (40, 31, 80, 1),
+]
+
+
+def _als_inputs(nv, deg, rows, d, density, device):
+    rng = np.random.default_rng(nv * 3 + deg + d)
+    nbrs = torch.from_numpy(rng.integers(0, rows, (nv, deg)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((nv, deg)) < density)
+    r = torch.from_numpy(rng.normal(size=(nv, deg)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+    return tuple(t.to(device) for t in (nbrs, mask, r, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.6, 1.0])
+@pytest.mark.parametrize("nv,deg,rows,d", ALS_SHAPES)
+def test_als_kernel_matches_plain_version_on_card(cuda, nv, deg, rows, d,
+                                                  density):
+    args = _als_inputs(nv, deg, rows, d, density, cuda)
+    want = als_port.als_normal_eq_plain(*args)
+    before = als_port.als_normal_eq.launches
+    got = als_port.als_normal_eq(*args)
+    torch.cuda.synchronize()
+    assert als_port.als_normal_eq.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, w)
+    # the same call on the CPU runs the plain version: bitwise
+    cpu = als_port.als_normal_eq(*(a.cpu() for a in args))
+    for g, c in zip(got, cpu):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_als_entry_points_share_the_launch(cuda):
+    nbrs, mask, r, x = _als_inputs(300, 12, 400, 20, 0.7, cuda)
+    before = als_port.als_normal_eq.launches
+    one = als_port.als_normal_eq(nbrs, mask, r, x)
+    split = als_port.als_normal_eq_bucketed(
+        [nbrs[:100], nbrs[100:]], [mask[:100], mask[100:]],
+        [r[:100], r[100:]], x)
+    batched = als_port.als_normal_eq_batched(nbrs, mask, r, x)
+    fold = als_port.als_normal_eq_fold(mask, r, x[nbrs.long()])
+    for got in (split, batched, fold):
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+    assert als_port.als_normal_eq.launches == before + 5
+
+
+@pytest.mark.cuda
+def test_als_masked_slots_are_skipped_on_card(cuda):
+    nbrs, mask, r, x = _als_inputs(40, 6, 30, 5, 0.6, cuda)
+    mask[:, 2] = False
+    nbrs[:, 2] = 29
+    nbrs[:, [0, 1, 3, 4, 5]] %= 29               # row 29 only behind masks
+    x[29] = torch.inf
+    a, b = als_port.als_normal_eq(nbrs, mask, r, x)
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    want = als_port.als_normal_eq_plain(nbrs, mask, r, x)
+    assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+
+
+@pytest.mark.cuda
+def test_als_launch_errors_raise(cuda):
+    nbrs, mask, r, x = _als_inputs(4, 3, 5, 65, 0.6, cuda)
+    before = als_port.als_normal_eq.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        als_port.als_normal_eq(nbrs, mask, r, x)       # d = 65 > 64
+    assert als_port.als_normal_eq.launches == before
+
+
+@pytest.mark.cuda
+def test_als_wrapper_raises_on_cuda_arguments_it_does_not_take(cuda):
+    nbrs, mask, r, x = _als_inputs(10, 4, 20, 8, 0.6, cuda)
+    for bad in (x.bfloat16(), x.double()):
+        with pytest.raises(ValueError, match="float32"):
+            als_port.als_normal_eq(nbrs, mask, r, bad)
+    with pytest.raises(ValueError, match="contiguous"):
+        als_port.als_normal_eq(nbrs, mask, r, torch.cat([x, x], 1)[:, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        als_port.als_normal_eq(nbrs.t().contiguous().t(), mask, r, x)
+
+
+def _normal_equations(graph, color):
+    ids, _ = build_color_batches(graph.colors.cpu().numpy())
+    ids = torch.from_numpy(ids[color]).to(graph.device)
+    scope = gather_scopes(graph, graph.vertex_data, graph.edge_data, ids, {})
+    return als_port.als_normal_eq_fold(
+        scope.nbr_mask, scope.edge_data["rating"], scope.nbr_data["w"])
+
+
+@pytest.mark.cuda
+def test_gpu_als_equals_cpu_als(cuda):
+    prob = als.synthetic_netflix(300, 200, d=8, density=0.06, device="cpu")
+    g, upd, syncs = als.build(prob, lam=0.05, eps=0.0)
+    for c in range(g.n_colors):
+        a_c, b_c = _normal_equations(g, c)
+        a_g, b_g = _normal_equations(g.to(cuda), c)
+        assert torch.equal(a_g.cpu(), a_c) and torch.equal(b_g.cpu(), b_c)
+    cpu = api.run(g, upd, syncs=syncs, device="cpu", num_supersteps=5)
+    before = als_port.als_normal_eq.launches
+    gpu = api.run(g, upd, syncs=syncs, device=cuda, num_supersteps=5)
+    # the update reached the CUDA launch: one fold per color phase
+    assert als_port.als_normal_eq.launches == before + 2 * 5
+    assert (gpu.superstep, gpu.n_updates) == (cpu.superstep, cpu.n_updates)
+    torch.testing.assert_close(gpu.vertex_data["w"].cpu(),
+                               cpu.vertex_data["w"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gpu.globals["rmse"].cpu(), cpu.globals["rmse"],
+                               rtol=1e-5, atol=0.0)
