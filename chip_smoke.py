@@ -39,7 +39,35 @@ Phases (any failure exits non-zero and prints no result):
                  to 0 just before and read just after; the sync RMSE, the
                  factors and 1,000 movies' normal equations checked in
                  float64 on the host;
-8. report      — a ``{"kernels": [...]}`` line, then the contract line
+8. attention   — ``window_attention`` against its plain version, within
+                 1e-5, at the serving path's full-size shapes (qwen3-4b's
+                 32 query and 8 KV heads, dh = 128: decode_32k's 4 x
+                 32,768 cache with kv_len ragged and full, long_500k's
+                 ring-wrapped 8,192-row window, each with a bf16 and an
+                 f32 cache; the reference's signature at [128, 32768,
+                 128] and at W = 513), timed beside the plain version,
+                 one library call (``scaled_dot_product_attention`` with
+                 ``enable_gqa`` and a boolean mask) and the bound;
+9. serve parity — qwen3-4b at full width with 2 layers, float32 parameters,
+                 TF32 off: 4 decode steps on the GPU and on the CPU from
+                 the same parameters and random cache, logits within
+                 1e-4; then 128 teacher-forced decode steps on the GPU
+                 from an empty cache against ``prefill``'s last-token
+                 logits within the reference's rtol = atol = 3e-2 (its
+                 own invariant) and within 1e-4 absolute (float32);
+10. serve main — all of qwen3-4b (36 layers, bf16, parameters drawn on the
+                 card from a seed) decodes 16 greedy tokens for 4
+                 requests at 32,768 context (decode_32k) and for 1
+                 request at 524,288 (long_500k, an 8,192-row ring),
+                 launch counts set to 0 just before and read just after;
+                 ms per step, tokens/s, peak memory, one step's layer
+                 breakdown and the device's idle share; the last step's
+                 attention in layers 0 and 35 checked in float64 on the
+                 host for sampled (request, head) pairs, and for every
+                 request the whole of layers 0 and 35 (the inserted K/V
+                 rows and the layer's output) and the logits against a
+                 float64 numpy decode on the host; the logits finite;
+11. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -76,6 +104,29 @@ ALS_CHECKED_MOVIES = 1000
 # and d << ratings; its condition number is printed), and the float32 LU
 # adds ~d * 6e-8; 1e-4 leaves an order of magnitude above that
 ALS_FACTOR_RTOL = 1e-4
+# serving: qwen3-4b's attention shapes (32 query heads, 8 KV heads,
+# dh = 128) and the two decode input shapes, cut to one card's batch
+SERVE_ARCH = "qwen3-4b"
+SERVE_CASES = (("decode_32k", 4, 32_768), ("long_500k", 1, 524_288))
+SERVE_TOKENS = 16
+REF_SIG_BATCH = 128            # the reference signature's [BH, W, dh]
+# the kernel against its plain version: both float32, summed in other
+# orders (the kernel's online softmax over splits)
+ATTN_TOL = 1e-5
+# the last step's attention against float64 on the host: float32 sums
+# of up to 32,768 products of values of size ~1
+ATTN_HOST_TOL = 5e-5
+# teacher-forced decode against prefill in float32 with TF32 off: the two
+# sum the same products in other orders, ~1e-5 apart at full width; 1e-4
+# beside the reference's bf16 limit 3e-2 * (1 + |prefill|)
+DECODE_F32_TOL = 1e-4
+# a bf16 decode layer and the logits on the card against float64 on the
+# host, normwise (|gpu - host| / |host| over a request's vector): bf16
+# stores each intermediate (the norms' outputs, q/k/v, the attention
+# output, the MLP's product, each residual sum) to 2^-9 relative, and
+# float32 rope angles at positions up to 2^19 carry the powf rounding of
+# the frequencies; a few of those 4e-3 roundings add up well under 2e-2
+LAYER_HOST_TOL = 2e-2
 
 
 def cuda_device(torch):
@@ -326,11 +377,12 @@ def pagerank_layers():
             + [(SlicedEll, "row_activation", "row_activation")])
 
 
-def layer_breakdown(torch, engine, layers):
-    """Seconds per layer of one fresh superstep, each layer (an
+def layer_breakdown(torch, layers, run, prepare=lambda: None,
+                    other="other (update body, select, host)"):
+    """Seconds per layer of one ``run(prepare())``, each layer (an
     ``(owner, attribute, label)`` triple) bracketed by synchronizes (so
     layers do not overlap; the sum is a little more than an unbracketed
-    superstep)."""
+    run).  ``prepare`` runs outside the timing."""
     acc = {}
 
     def timed(label, fn):
@@ -347,29 +399,30 @@ def layer_breakdown(torch, engine, layers):
     try:
         for (owner, attr, label), (_, _, fn) in zip(layers, saved):
             setattr(owner, attr, timed(label, fn))
-        state = engine.init_state()
+        arg = prepare()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine._superstep(state)
+        run(arg)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
-    acc["other (update body, select, host)"] = total - sum(acc.values())
+    acc[other] = total - sum(acc.values())
     return total, acc
 
 
-def device_busy(torch, engine):
-    """Wall time and summed device time of one fresh superstep under
-    torch.profiler; None where the profiler shows no device time."""
+def device_busy(torch, run, prepare=lambda: None):
+    """Wall time, summed device time (None where the profiler shows no
+    device time), the ten costliest kernels and the number of kernels
+    launched, of one ``run(prepare())`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    state = engine.init_state()
+    arg = prepare()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine._superstep(state)
+        run(arg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -381,7 +434,9 @@ def device_busy(torch, engine):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     per = sorted(((getattr(e, attr), e.key) for e in kern), reverse=True)
     busy_us = sum(t for t, _ in per)
-    return wall, (busy_us * 1e-6 if busy_us > 0 else None), per[:10]
+    n_kernels = sum(e.count for e in kern)
+    return (wall, (busy_us * 1e-6 if busy_us > 0 else None), per[:10],
+            n_kernels)
 
 
 def phase_main(torch, ctx):
@@ -439,24 +494,32 @@ def phase_main(torch, ctx):
 def report_superstep(torch, engine, layers):
     """Log one fresh superstep's layer breakdown and, under
     torch.profiler, the device's idle share."""
-    total_s, acc = layer_breakdown(torch, engine, layers)
-    log(f"one fresh superstep, layers bracketed by synchronize: "
+    report_run(torch, "superstep", layers, engine._superstep,
+               engine.init_state)
+
+
+def report_run(torch, what, layers, run, prepare=lambda: None, **kw):
+    """Log the layer breakdown of one ``run(prepare())`` and, under
+    torch.profiler, the device's idle share."""
+    total_s, acc = layer_breakdown(torch, layers, run, prepare, **kw)
+    log(f"one fresh {what}, layers bracketed by synchronize: "
         f"{1e3 * total_s:.2f} ms")
     for k, v in sorted(acc.items(), key=lambda kv: -kv[1]):
         log(f"  {k:<34} {1e3 * v:9.2f} ms  {100 * v / total_s:5.1f}%")
     try:
-        wall_s, busy_s, top = device_busy(torch, engine)
+        wall_s, busy_s, top, n_kernels = device_busy(torch, run, prepare)
     except Exception:            # the profiler is optional here
         traceback.print_exc()
-        wall_s, busy_s, top = None, None, []
+        wall_s, busy_s, top, n_kernels = None, None, [], 0
     if busy_s is None:
         log("device idle share: not measured (no device time in the trace)")
-    else:
-        log(f"one fresh superstep under torch.profiler: wall "
-            f"{1e3 * wall_s:.2f} ms, device busy {1e3 * busy_s:.2f} ms, "
-            f"idle share {max(0.0, 1 - busy_s / wall_s):.3f}")
-        for t, name in top:
-            log(f"  {t / 1e3:9.2f} ms  {name[:70]}")
+        return
+    log(f"one fresh {what} under torch.profiler: wall "
+        f"{1e3 * wall_s:.2f} ms, device busy {1e3 * busy_s:.2f} ms, "
+        f"idle share {max(0.0, 1 - busy_s / wall_s):.3f}, {n_kernels} "
+        f"device kernels")
+    for t, name in top:
+        log(f"  {t / 1e3:9.2f} ms  {name[:70]}")
 
 
 def als_bound(nv, width, real, rows, d, fold=False):
@@ -769,6 +832,418 @@ def setup_als(torch, ctx):
     ctx["als_problem"] = prob
 
 
+def release(torch, ctx, *keys):
+    """Drop the named set-ups of earlier phases and their device memory."""
+    import gc
+    for k in keys:
+        ctx.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def attention_bound(kv_len, h, hkv, dh, kv_bytes):
+    """Least time for one window_attention call on this data: the larger
+    of the bytes it must move (every valid K and V row once per KV head,
+    q in float32 and kv_len read once, the float32 output written once)
+    over the HBM rate and its flops (a multiply and an add per element of
+    q . k and of p . v, and 4 a score for the softmax's max, exp, sum and
+    scale) over the float32 rate."""
+    rows = int(kv_len.sum())
+    b = kv_len.numel()
+    nbytes = rows * hkv * 2 * dh * kv_bytes + 2 * b * h * dh * 4 + b * 4
+    flops = rows * h * (4 * dh + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attention_case(torch, label, b, h, hkv, w, dh, dtype, lens, flush, gen,
+                   reference_signature=False):
+    """``window_attention`` at one shape against its plain version
+    (within ATTN_TOL), timed beside the plain version, the library call
+    and the bound.  ``lens``: "full" (every request at kv_len = W, the
+    ring-wrapped cache of the main path) or "ragged" (uniform in [1, W],
+    with 1 and W among them)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import decode_window_attention_ref
+    from repro_torch.kernels.window_attention import (decode_window_attention,
+                                                      window_attention)
+    dev = flush.device
+    q = torch.randn((b, h, dh), generator=gen, device=dev)
+    k = torch.randn((b, w, hkv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, w, hkv, dh), generator=gen, device=dev).to(dtype)
+    if lens == "full":
+        kvl = torch.full((b,), w, dtype=torch.int32, device=dev)
+    else:
+        kvl = torch.randint(1, w + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        kvl[0], kvl[-1] = 1, w
+    if reference_signature:
+        kern = lambda: decode_window_attention(q[:, 0], k[:, :, 0],
+                                               v[:, :, 0], kvl)[:, None]
+    else:
+        kern = lambda: window_attention(q, k, v, kvl)
+    plain = lambda: decode_window_attention_ref(q, k, v, kvl)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= ATTN_TOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"window_attention {label}: max |diff| {err} "
+                             f"from the plain version (limit {ATTN_TOL})")
+    # the library yardstick, never on the path: SDPA over the cache's
+    # [B, Hkv, W, dh] view with a boolean mask, at the cache's dtype
+    qs = q.to(dtype)[:, :, None, :]
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(w, device=dev)[None, :] < kvl[:, None])[:, None,
+                                                                 None, :]
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                 enable_gqa=True)
+    lib_err = float((lib()[:, :, 0].float() - want).abs().max())
+    ms, call_ms = time_cuda(torch, kern, 20, flush)
+    plain_ms, _ = time_cuda(torch, plain, 3, flush)
+    lib_ms, _ = time_cuda(torch, lib, 20, flush)
+    bms, by = attention_bound(kvl, h, hkv, dh, k.element_size())
+    log(f"{label:<34} [{b}, {h}, {hkv}, {w}, {dh}] rows {int(kvl.sum()):>7}: "
+        f"{ms:8.4f} ms ({call_ms:.4f} with the host), plain {plain_ms:8.4f}, "
+        f"library {lib_ms:8.4f} (max |diff| {lib_err:.1e}), bound "
+        f"{bms:.4f} ({by}), max |diff| {err:.2e}")
+    return dict(label=label, shape=[b, h, hkv, w, dh], dtype=str(dtype)[6:],
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
+def phase_attention(torch, ctx):
+    """window_attention vs its plain version at the serving shapes."""
+    from repro_torch import configs
+    release(torch, ctx, "graph", "update", "syncs", "edges", "als_problem")
+    cfg = configs.get(SERVE_ARCH)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    dev = ctx["dev"]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("times: device ms (call ms with the host's enqueue), L2 flushed")
+    from repro_torch.serve.engine import cache_width
+    (_, b32, s32), (_, b500, s500) = SERVE_CASES
+    w32, w500 = cache_width(cfg, s32), cache_width(cfg, s500)
+    cases = []
+    for label, b, w, dtype, lens in (
+            ("decode_32k, bf16, full (a step's)", b32, w32, bf16, "full"),
+            ("decode_32k, bf16, ragged", b32, w32, bf16, "ragged"),
+            ("long_500k, bf16, ring wrapped", b500, w500, bf16, "full"),
+            ("decode_32k, f32, ragged", b32, w32, f32, "ragged"),
+            ("long_500k, f32, ring wrapped", b500, w500, f32, "full")):
+        cases.append(attention_case(torch, label, b, h, hkv, w, dh, dtype,
+                                    lens, flush, gen))
+    for w in (w32, 513):
+        cases.append(attention_case(torch, f"reference signature, W={w}",
+                                    REF_SIG_BATCH, 1, 1, w, dh, f32, "ragged",
+                                    flush, gen, reference_signature=True))
+    ctx["attn_cases"] = cases
+    ctx["serve_n_layers"] = cfg.n_layers
+
+
+def phase_serve_parity(torch, ctx):
+    """qwen3-4b, full width, 2 layers, float32: GPU vs CPU decode, and
+    teacher-forced decode vs prefill on the GPU."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    dev = ctx["dev"]
+    cfg = dataclasses.replace(configs.get(SERVE_ARCH), n_layers=2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_params = model.init_params(cfg, seed=0, dtype=torch.float32,
+                                       device="cpu")
+        gpu_params = model.Model(cfg, dtype=torch.float32, device=dev)
+        gpu_params.load_state_dict(cpu_params.state_dict())
+        b, seq = 2, 1024
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        states = []
+        for d in ("cpu", dev):
+            st = engine.init_cache(cfg, b, seq, dtype=torch.float32, device=d)
+            gen.manual_seed(1)
+            st.cache_k.copy_(torch.randn(st.cache_k.shape, generator=gen))
+            st.cache_v.copy_(torch.randn(st.cache_v.shape, generator=gen))
+            st.cache_len.copy_(torch.tensor([seq, 300], dtype=torch.int32))
+            states.append(st)
+        cst, gst = states
+        tok = torch.tensor([[11], [cfg.vocab - 1]], dtype=torch.int32)
+        worst = 0.0
+        for _ in range(4):
+            cl, cst = engine.decode_step(cpu_params, cfg, tok, cst)
+            gl, gst = engine.decode_step(gpu_params, cfg, tok.to(dev), gst)
+            diff = float((gl.cpu() - cl)[:, :cfg.vocab].abs().max())
+            worst = max(worst, diff)
+            tok = torch.argmax(cl[:, :cfg.vocab], dim=-1)[:, None].int()
+        log(f"{SERVE_ARCH} full width, 2 layers, float32: 4 decode steps "
+            f"GPU vs CPU, logits max |diff| {worst:.2e} (limit 1e-4; "
+            f"|logits| up to {float(cl.abs()[:, :cfg.vocab].max()):.2f})")
+        if not worst <= 1e-4:
+            raise AssertionError(f"GPU decode off the CPU's by {worst}")
+        del cpu_params, states, cst, gst
+
+        # the reference's invariant (test_decode_matches_forward_logits) at
+        # full width: teacher-forced decode from an empty cache reproduces
+        # prefill's last-token logits, within its rtol = atol = 3e-2
+        s = 128
+        toks = torch.randint(0, cfg.vocab, (2, s), generator=torch.Generator(
+            device=dev).manual_seed(2), device=dev, dtype=torch.int32)
+        want = model.prefill(gpu_params, cfg, {"tokens": toks})
+        st = engine.init_cache(cfg, 2, s, dtype=torch.float32, device=dev)
+        st.cache_len.zero_()
+        for i in range(s):
+            logits, st = engine.decode_step(gpu_params, cfg, toks[:, i:i + 1],
+                                            st)
+        d, ref = logits[:, :cfg.vocab], want[:, :cfg.vocab]
+        diff = float((d - ref).abs().max())
+        excess = float(((d - ref).abs() - 3e-2 * (1 + ref.abs())).max())
+        log(f"{SERVE_ARCH} full width, 2 layers, float32: {s} teacher-forced "
+            f"decode steps from an empty cache vs prefill, last logits max "
+            f"|diff| {diff:.2e} (limits {DECODE_F32_TOL} and 3e-2 * (1 + "
+            f"|prefill|), worst margin to the latter {-excess:.2e})")
+        if not (excess <= 0 and diff <= DECODE_F32_TOL):
+            raise AssertionError(f"decode off prefill by {diff}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def serve_layers():
+    """``(owner, attribute, label)`` of each layer a decode step is split
+    into."""
+    from repro_torch.models import attention
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    return [(model, "_embed_tokens", "embed"),
+            (engine, "rmsnorm", "norms (norm1, norm2, final)"),
+            (attention, "_qkv", "QKV projections, qk_norm, rope"),
+            (attention, "_ring_insert", "ring insert"),
+            (attention, "window_attention", "window_attention (the kernel)"),
+            (attention, "_out_proj", "wo"),
+            (model, "_mlp_apply", "MLP"),
+            (model, "_logits", "logits")]
+
+
+def check_attention_on_host(torch, captured, n_rep, pairs, rng):
+    """The captured attention of sampled (request, head) pairs against
+    float64 on the host; returns the largest |diff|."""
+    import numpy as np
+    worst = 0.0
+    for layer, (q, kvl, out, k, v) in sorted(captured.items()):
+        b, h, dh = q.shape
+        for bi, hi in zip(rng.integers(0, b, pairs), rng.integers(0, h, pairs)):
+            n = int(kvl[bi])
+            g = hi // n_rep
+            kk = k[bi, :n, g].double().cpu().numpy()
+            vv = v[bi, :n, g].double().cpu().numpy()
+            qq = q[bi, hi].double().cpu().numpy()
+            sc = kk @ qq / np.sqrt(dh)
+            p = np.exp(sc - sc.max())
+            o = (p / p.sum()) @ vv
+            worst = max(worst, float(np.abs(out[bi, hi].double().cpu()
+                                            .numpy() - o).max()))
+    return worst
+
+
+def host_decode_layer(np, cfg, p, x, ck, cv, pos):
+    """One decode layer for one request in float64 numpy, from the
+    reference's equations: ``p`` the layer's parameters by name; x [d];
+    ck / cv [W, Hkv, dh], the layer's cache rows, get the new token's K/V
+    at ring slot ``pos % W``; rope's angles are float32, as the reference
+    defines them.  Returns (x, k, v)."""
+    assert cfg.act == "silu", cfg.act
+    dh, half, eps = cfg.dh, cfg.dh // 2, cfg.norm_eps
+    norm = lambda t, s: t / np.sqrt((t * t).mean(-1, keepdims=True) + eps) * s
+    freqs = np.float32(1) / np.float32(cfg.rope_theta) ** (
+        np.arange(half, dtype=np.float32) / np.float32(half))
+    ang = (np.float32(pos) * freqs).astype(np.float64)
+    cos, sin = np.cos(ang), np.sin(ang)
+    rope = lambda t: np.concatenate([t[:, :half] * cos - t[:, half:] * sin,
+                                     t[:, half:] * cos + t[:, :half] * sin], -1)
+    h = norm(x, p["norm1"])
+    q = (h @ p["mix.wq"]).reshape(cfg.n_heads, dh)
+    k = (h @ p["mix.wk"]).reshape(cfg.n_kv_heads, dh)
+    v = (h @ p["mix.wv"]).reshape(cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q, k = norm(q, p["mix.q_norm"]), norm(k, p["mix.k_norm"])
+    q, k = rope(q), rope(k)
+    w = ck.shape[0]
+    ck[pos % w], cv[pos % w] = k, v
+    n, n_rep = min(pos + 1, w), cfg.n_heads // cfg.n_kv_heads
+    o = np.empty_like(q)
+    for hi in range(cfg.n_heads):
+        sc = ck[:n, hi // n_rep] @ q[hi] / np.sqrt(dh)
+        pr = np.exp(sc - sc.max())
+        o[hi] = (pr / pr.sum()) @ cv[:n, hi // n_rep]
+    x = x + o.reshape(-1) @ p["mix.wo"]
+    h = norm(x, p["norm2"])
+    g = h @ p["ffn.w_gate"]
+    x = x + (g / (1 + np.exp(-g)) * (h @ p["ffn.w_up"])) @ p["ffn.w_down"]
+    return x, k, v
+
+
+def check_layers_on_host(cfg, params, layers, logits):
+    """The captured decode layers (``{layer: (x in, x out, cache_len,
+    cache K, cache V)}`` of one step) and that step's logits against
+    float64 on the host, for every request; returns the largest normwise
+    error of each quantity."""
+    import numpy as np
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    f = lambda t: t.detach().double().cpu().numpy()
+    worst = {"k": 0.0, "v": 0.0, "layer": 0.0, "logits": 0.0}
+    last = cfg.n_layers - 1
+    out_w = f(params.out if params.out is not None else params.embed)
+    for layer, (xi, xo, clen, ck, cv) in sorted(layers.items()):
+        p = {n: f(t) for n, t in params.layers[layer].named_parameters()}
+        for r in range(xi.shape[0]):
+            pos = int(clen[r])
+            slot = pos % ck.shape[1]
+            x, k, v = host_decode_layer(np, cfg, p, f(xi[r, 0]), f(ck[r]),
+                                        f(cv[r]), pos)
+            worst["k"] = max(worst["k"], rel(f(ck[r, slot]), k))
+            worst["v"] = max(worst["v"], rel(f(cv[r, slot]), v))
+            worst["layer"] = max(worst["layer"], rel(f(xo[r, 0]), x))
+            if layer == last:
+                h = f(xo[r, 0])
+                h = h / np.sqrt((h * h).mean() + cfg.norm_eps) * f(
+                    params.final_norm)
+                want = out_w[:cfg.vocab] @ h
+                worst["logits"] = max(worst["logits"], rel(
+                    f(logits[r, :cfg.vocab]), want))
+    return worst
+
+
+def phase_serve_main(torch, ctx):
+    """All of qwen3-4b decoding 16 greedy tokens at decode_32k and
+    long_500k, through launch/serve's loop, counted and checked."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.window_attention import window_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    dev = ctx["dev"]
+    cfg = configs.get(SERVE_ARCH)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{SERVE_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.dh}, vocab "
+        f"{cfg.vocab} (padded {model.vocab_padded(cfg)}); {n_params:,} bf16 "
+        f"parameters ({n_params * 2 / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    launches = 0
+    for case, batch, seq_len in SERVE_CASES:
+        state = engine.init_cache(cfg, batch, seq_len, device=dev)
+        state.cache_k.normal_(generator=gen)
+        state.cache_v.normal_(generator=gen)
+        w = state.cache_k.shape[2]
+        tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        captured, calls = {}, [0]
+        layers, layer_calls = {}, [0]
+        real = attention.window_attention
+        real_layer = engine._decode_layer
+
+        def capture(q, k, v, kv_len):
+            # the last step's inputs and output in the first and last layer
+            out = real(q, k, v, kv_len)
+            i = calls[0]
+            calls[0] += 1
+            layer = i % cfg.n_layers
+            if (i >= (SERVE_TOKENS - 1) * cfg.n_layers
+                    and layer in (0, cfg.n_layers - 1)):
+                captured[layer] = (q.clone(), kv_len.clone(), out.clone(), k,
+                                   v)
+            return out
+
+        def capture_layer(lp, cfg_, x, ck, cv, clen):
+            # the last step's first and last layer: input, output, caches
+            out = real_layer(lp, cfg_, x, ck, cv, clen)
+            i = layer_calls[0]
+            layer_calls[0] += 1
+            layer = i % cfg.n_layers
+            if (i >= (SERVE_TOKENS - 1) * cfg.n_layers
+                    and layer in (0, cfg.n_layers - 1)):
+                layers[layer] = (x.clone(), out.clone(), clen.clone(), ck, cv)
+            return out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.window_attention = capture
+        engine._decode_layer = capture_layer
+        try:
+            window_attention.launches = 0
+            seqs, logits, state, seconds = serve.generate(
+                params, cfg, tok, state, SERVE_TOKENS)
+            n_launch = window_attention.launches
+        finally:
+            attention.window_attention = real
+            engine._decode_layer = real_layer
+        launches += n_launch
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = 1e3 * sum(seconds[1:]) / (len(seconds) - 1)
+        cache_gb = 2 * state.cache_k.numel() * 2 / 1e9
+        log(f"{case}: batch {batch}, context {seq_len}, ring W {w}, "
+            f"cache {cache_gb:.2f} GB; {SERVE_TOKENS} greedy tokens: first "
+            f"step {1e3 * seconds[0]:.2f} ms, then {step_ms:.2f} ms a step "
+            f"(min {1e3 * min(seconds[1:]):.2f}, max "
+            f"{1e3 * max(seconds[1:]):.2f}), {1e3 * batch / step_ms:.1f} "
+            f"tokens/s; window_attention launches {n_launch} (expected "
+            f"{SERVE_TOKENS * cfg.n_layers}); peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"{case}: tokens of request 0: {seqs[0].tolist()}")
+        if n_launch != SERVE_TOKENS * cfg.n_layers:
+            raise AssertionError(f"{case}: {n_launch} window_attention "
+                                 "launches")
+        if not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+            raise AssertionError(f"{case}: logits are not finite")
+        if tuple(seqs.shape) != (batch, SERVE_TOKENS):
+            raise AssertionError(f"{case}: tokens of shape {seqs.shape}")
+        lens = captured[0][1].tolist()
+        if lens != [min(seq_len + SERVE_TOKENS, w)] * batch:
+            raise AssertionError(f"{case}: the last step's kv_len {lens}")
+        worst = check_attention_on_host(torch, captured, n_rep, 8, rng)
+        log(f"{case}: last step's attention in layers "
+            f"{sorted(captured)} for 16 (request, head) pairs vs float64 "
+            f"on the host: max |diff| {worst:.2e} (limit {ATTN_HOST_TOL})")
+        if not worst <= ATTN_HOST_TOL:
+            raise AssertionError(f"{case}: attention off float64 by {worst}")
+        del captured
+        t1 = time.perf_counter()
+        errs = check_layers_on_host(cfg, params, layers, logits)
+        log(f"{case}: last step's layers {sorted(layers)} and logits for all "
+            f"{batch} requests vs a float64 decode on the host, normwise: "
+            f"inserted K {errs['k']:.2e}, V {errs['v']:.2e}, layer output "
+            f"{errs['layer']:.2e}, logits {errs['logits']:.2e} (limit "
+            f"{LAYER_HOST_TOL}; {time.perf_counter() - t1:.1f} s)")
+        if not max(errs.values()) <= LAYER_HOST_TOL:
+            raise AssertionError(f"{case}: bf16 decode off float64: {errs}")
+        del layers
+
+        nxt = [torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None].int()]
+
+        def one_step(_):
+            lg, st = engine.decode_step(params, cfg, nxt[0], nxt[1])
+            nxt[:] = [torch.argmax(lg[:, :cfg.vocab], dim=-1)[:, None].int(),
+                      st]
+        nxt.append(state)
+        report_run(torch, f"{case} decode step", serve_layers(), one_step,
+                   other="other (residual adds, casts, host)")
+        del state, nxt, logits
+        torch.cuda.empty_cache()
+    ctx.setdefault("launches", {})["window_attention"] = launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -796,7 +1271,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     try:
-        logs = _build.build(["ell_spmv", "als_normal_eq"])
+        logs = _build.build(["ell_spmv", "als_normal_eq", "window_attention"])
         log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
         for name, text in logs.items():
             for line in text.splitlines():
@@ -822,6 +1297,7 @@ def main() -> int:
         f"host set-up: edges {t1 - t0:.1f} s, build + coloring "
         f"{t2 - t1:.1f} s")
     ctx.update(graph=graph, update=update, syncs=syncs, edges=edges)
+    del graph, update, syncs, edges      # ctx holds them until phase 8
 
     for name, fn in (("phase 2 kernels", phase_kernels),
                      ("phase 3 parity", phase_parity),
@@ -829,7 +1305,10 @@ def main() -> int:
                      ("als set-up", setup_als),
                      ("phase 5 als kernels", phase_als_kernels),
                      ("phase 6 als parity", phase_als_parity),
-                     ("phase 7 als main path", phase_als_main)):
+                     ("phase 7 als main path", phase_als_main),
+                     ("phase 8 attention kernels", phase_attention),
+                     ("phase 9 serve parity", phase_serve_parity),
+                     ("phase 10 serve main path", phase_serve_main)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:
@@ -865,6 +1344,19 @@ def main() -> int:
         **{k: sum(c[k] for c in folds)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "/".join(sorted({c["bound_by"] for c in folds})),
+    })
+    step = ctx["attn_cases"][0]       # decode_32k with the cache full
+    n_layers = ctx["serve_n_layers"]
+    kernels.append({
+        "name": "window_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/window_attention.cu",
+        "replaces": "src/repro/kernels/window_attention.py:25",
+        "launches": ctx["launches"]["window_attention"],
+        "max_abs_err": max(c["max_abs_err"] for c in ctx["attn_cases"]),
+        # one decode_32k step's launches: one a layer
+        **{k: n_layers * step[k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": step["bound_by"],
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Carry a graph across between ``repro`` and the port as numpy arrays.
+"""Carry a graph or a model's parameters across between ``repro`` and
+the port as numpy arrays.
 
 A reference ``DataGraph`` exported to a dict of numpy arrays plus a
 small ``meta`` dict becomes a port ``DataGraph`` on identical storage:
@@ -15,14 +16,24 @@ Array keys: ``nbrs.<b>``, ``nbr_mask.<b>``, ``edge_ids.<b>``,
 ``vertex.<name>`` / ``edge.<name>`` for the data (edge data includes
 the pad row).  Meta keys: ``n_vertices``, ``n_edges``, ``max_deg``,
 ``widths``, ``starts``, ``pad_edge``.
+
+Parameters: the reference's parameter pytree flattened to numpy arrays
+keyed by path (``embed``, ``final_norm``, ``out``, ``layers.norm1``,
+``layers.mix.wq``, ``layers.ffn.w_gate``, ...; the ``layers.*`` arrays
+keep their stacked leading ``[L, ...]`` axis) becomes the port's
+``Model`` on a device, bit for bit.  bfloat16 arrives as an
+``ml_dtypes`` array, which this package reads through its raw 16 bits,
+so it never imports ``ml_dtypes``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import DataGraph, SlicedEll
 from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
 
 _BLOCKS = ("nbrs", "nbr_mask", "edge_ids", "is_src")
 
@@ -73,3 +84,44 @@ def graph_to_arrays(graph: DataGraph) -> tuple[dict, dict]:
                 max_deg=graph.max_deg, widths=list(ell.widths),
                 starts=list(ell.starts), pad_edge=ell.pad_edge)
     return arrays, meta
+
+
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of an exported array, bfloat16 (``ml_dtypes``) read
+    bitwise through its 16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_arrays(arrays: dict, cfg: ModelConfig, device=None) -> Model:
+    """The port's ``Model`` on ``device`` holding the exported reference
+    parameters: ``layers.<name>`` ``[L, ...]`` becomes ``layers.<i>.<name>``.
+    The dtypes are the arrays' (the weights' from ``embed``); a missing,
+    extra or mis-shaped array raises."""
+    device = resolve_device(device)
+    tensors = {k: _tensor(a) for k, a in arrays.items()}
+    model = Model(cfg, dtype=tensors["embed"].dtype, device=device)
+    state = {}
+    for key, t in tensors.items():
+        if key.startswith("layers."):
+            if t.shape[0] != cfg.n_layers:
+                raise ValueError(f"{key}: {t.shape[0]} layers, the config "
+                                 f"has {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                state[f"layers.{i}.{key[len('layers.'):]}"] = t[i]
+        else:
+            state[key] = t
+    want = model.state_dict()
+    if set(state) != set(want):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(want) - set(state))}, extra "
+                         f"{sorted(set(state) - set(want))}")
+    for key, t in state.items():
+        if t.shape != want[key].shape or t.dtype != want[key].dtype:
+            raise ValueError(f"{key}: got {tuple(t.shape)} {t.dtype}, the "
+                             f"model has {tuple(want[key].shape)} "
+                             f"{want[key].dtype}")
+    model.load_state_dict(state)
+    return model

@@ -22,3 +22,23 @@ def als_normal_eq_ref(nbrs: torch.Tensor, mask: torch.Tensor,
     a = torch.einsum("vdi,vdj->vij", xm, xg)
     b = torch.einsum("vdi,vd->vi", xm, ratings)
     return a, b
+
+
+def decode_window_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                kv_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention over the first ``kv_len`` rows of a KV cache, in
+    float32: q [B, H, dh]; k/v [B, W, Hkv, dh]; kv_len [B].  Query head h
+    reads KV head h // (H / Hkv) (the reference's grouped view
+    ``q.reshape(b, hkv, n_rep, dh)``).  Returns float32 [B, H, dh]."""
+    b, h, dh = q.shape
+    w, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / (dh ** 0.5)
+    qg = q.to(torch.float32).reshape(b, hkv, h // hkv, dh)
+    s = torch.einsum("bgrd,bwgd->bgrw", qg, k.to(torch.float32)) * scale
+    pos = torch.arange(w, device=k.device)[None, :]
+    valid = (pos < kv_len.to(k.device)[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrw,bwgd->bgrd", p, v.to(torch.float32))
+    return o.reshape(b, h, dh)

@@ -1,0 +1,207 @@
+"""GQA self-attention of the dense decoder: prefill (full or sliding-window
+causal) and cached decode (``repro.models.attention`` in PyTorch).
+
+Parameters live in an ``Attention`` module (the reference's
+``attention.init`` pytree): ``wq``, ``wk``, ``wv`` as ``[d, heads * dh]``
+and ``wo`` as ``[heads * dh, d]``, applied as ``x @ w``, plus the
+float32 ``q_norm`` / ``k_norm`` scales where the config has qk_norm.
+
+Decode takes its attention from the hand-written CUDA kernel
+(``kernels/window_attention``): the new token's K/V go into the ring
+slot first, in place, and the query attends to the cache's valid
+prefix.  Cross-attention (the audio family's) waits for that family.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.window_attention import window_attention
+from repro_torch.models.layers import linear_init, rmsnorm, rmsnorm_init, rope
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Attention(nn.Module):
+    """One layer's attention weights.  With ``gen`` the weights are drawn
+    from it (``linear_init``); without, they are left uninitialised on
+    ``device``, for ``interop.params_from_arrays`` to fill."""
+
+    def __init__(self, cfg, gen: torch.Generator | None = None,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d, dh = cfg.d_model, cfg.dh
+        shapes = {"wq": (d, cfg.n_heads * dh), "wk": (d, cfg.n_kv_heads * dh),
+                  "wv": (d, cfg.n_kv_heads * dh), "wo": (cfg.n_heads * dh, d)}
+        for name, shape in shapes.items():
+            w = (linear_init(gen, *shape, dtype) if gen is not None
+                 else torch.empty(shape, dtype=dtype, device=device))
+            setattr(self, name, _param(w))
+        if cfg.qk_norm:
+            dev = gen.device if gen is not None else device
+            self.q_norm = _param(rmsnorm_init(dh, dev))
+            self.k_norm = _param(rmsnorm_init(dh, dev))
+
+
+def _qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Projections, qk_norm and rope at ``positions``:
+    q [B,S,H,dh], k/v [B,S,Hkv,dh]."""
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, dh)
+    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, dh)
+    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, n_rep: int):
+    """q: [B,S,H,dh], k/v: [B,T,Hkv,dh]; mask [S,T] or [B,S,T] additive."""
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bshd,bthd->bhst", q, k).float() * scale
+    s = s + mask
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", p, v)
+
+
+def causal_mask(s: int, window: int | None = None, device=None):
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    ok = j <= i
+    if window is not None:
+        ok &= (i - j) < window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, float("-inf"))
+
+
+_FLASH_THRESHOLD = 2048
+_QC = 512      # query chunk
+_KC = 1024     # kv chunk
+
+
+def flash_attention(q, k, v, causal: bool, window: int | None,
+                    n_rep: int) -> torch.Tensor:
+    """Memory-bounded attention: an online softmax over KV chunks inside
+    a loop over query chunks, so the live score block is [B,H,QC,KC]
+    instead of [B,H,S,S].  As in the reference, the probability tile is
+    stored in q's dtype (bf16 for bf16 models) while the running max and
+    denominator stay float32.  S and T must be multiples of the chunks
+    (or smaller than them)."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    qc = min(_QC, s)
+    kc = min(_KC, t)
+    nq, nk = s // qc, t // kc
+    scale = dh ** -0.5
+    qr = q.reshape(b, nq, qc, h, dh).permute(1, 0, 3, 2, 4)   # [nq,B,H,qc,dh]
+    kr = k.reshape(b, nk, kc, h, dh).permute(1, 0, 3, 2, 4)
+    vr = v.reshape(b, nk, kc, h, dh).permute(1, 0, 3, 2, 4)
+    neg = torch.tensor(float("-inf"), device=q.device)
+    zero = torch.zeros((), device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = qr[qi]
+        qpos = qi * qc + torch.arange(qc, device=q.device)
+        m_p = torch.full((b, h, qc), float("-inf"), device=q.device)
+        l_p = torch.zeros((b, h, qc), device=q.device)
+        acc = torch.zeros((b, h, qc, dh), device=q.device)
+        for ki in range(nk):
+            kb, vb = kr[ki], vr[ki]
+            kpos = ki * kc + torch.arange(kc, device=q.device)
+            sc = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
+            ok = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                ok &= (qpos[:, None] - kpos[None, :]) < window
+            sc32 = torch.where(ok, sc.float(), neg)
+            m_c = torch.maximum(m_p, sc32.amax(-1))
+            # fully masked blocks keep m == -inf: guard the exps so the
+            # running state stays finite (their entries are 0 anyway)
+            m_safe = torch.where(torch.isfinite(m_c), m_c, zero)
+            pr = torch.exp(sc.float() - m_safe[..., None]).to(qb.dtype)
+            pr = torch.where(ok, pr, 0)
+            alpha = torch.where(torch.isfinite(m_p), torch.exp(m_p - m_safe),
+                                zero)
+            l_p = alpha * l_p + pr.float().sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", pr, vb).float()
+            m_p = m_c
+        outs.append((acc / torch.clamp(l_p, min=1e-30)[..., None])
+                    .to(q.dtype))                          # [B,H,qc,dh]
+    ob = torch.stack(outs)
+    return ob.permute(1, 0, 3, 2, 4).reshape(b, s, h, dh)
+
+
+def self_attention(p: Attention, cfg, x: torch.Tensor, positions,
+                   causal: bool = True,
+                   window: int | None | str = "cfg") -> torch.Tensor:
+    b, s, d = x.shape
+    if window == "cfg":
+        window = cfg.window
+    q, k, v = _qkv(p, cfg, x, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if s > _FLASH_THRESHOLD:
+        o = flash_attention(q, k, v, causal, window, n_rep)
+    else:
+        if causal:
+            mask = causal_mask(s, window, x.device)
+        else:
+            mask = torch.zeros((s, s), dtype=torch.float32, device=x.device)
+        o = _sdpa(q, k, v, mask, n_rep)
+    return o.reshape(b, s, -1) @ p.wo
+
+
+# ----------------------------------------------------------------------
+# Decode path: one query token against a KV cache.
+# ----------------------------------------------------------------------
+
+def _ring_insert(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
+    """In place: cache [B,W,H,dh] gets new [B,1,H,dh] at row slot [B]."""
+    b = cache.shape[0]
+    cache[torch.arange(b, device=cache.device), slot] = new[:, 0].to(
+        cache.dtype)
+    return cache
+
+
+def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    return o @ p.wo
+
+
+def decode_attention(p: Attention, cfg, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cache_len: torch.Tensor):
+    """x: [B,1,d]; cache_k/v: [B,W,Hkv,dh]; cache_len: [B] int32 tokens
+    seen so far (the new token's absolute position).
+
+    Insert-then-attend, as the reference: the new token's K/V go into
+    ring slot ``cache_len % W`` first -- in place, so cache_k/v are
+    updated for the caller -- and the query attends to the cache alone.
+    The reference's valid set ``t < min(cache_len + 1, W) | t == slot``
+    is always the prefix ``t < kv_len``, ``kv_len = min(cache_len + 1,
+    W)``, which is the kernel's contract; kv_len is computed on the
+    device.  The kernel's float32 output is cast to x's dtype before
+    ``wo``.  Returns out [B,1,d].
+    """
+    b = x.shape[0]
+    pos = cache_len.long()[:, None]                       # position = len
+    q, k, v = _qkv(p, cfg, x, pos)
+    w = cache_k.shape[1]
+    slot = cache_len.long() % w
+    _ring_insert(cache_k, k, slot)
+    _ring_insert(cache_v, v, slot)
+    kv_len = torch.clamp(cache_len + 1, max=w).to(torch.int32)
+    o = window_attention(q[:, 0], cache_k, cache_v, kv_len)   # [B,H,dh] f32
+    return _out_proj(p, o.to(x.dtype).reshape(b, 1, -1))

@@ -12,6 +12,11 @@ bitwise: the kernels' products and adds are unfused, as the CPU's eager
 slot loops are.  ALS on the GPU equals ALS on the CPU bitwise in its
 normal equations; its factors pass through cuSOLVER's LU on the card and
 LAPACK's on the CPU, so they are held to rtol = 1e-4, atol = 1e-5.
+The window-attention kernel is held to its plain version within 1e-5
+absolute: both compute in float32, but the kernel's online softmax sums
+in another order.  Decoding on the GPU is held to decoding on the CPU
+within 1e-4 (float32 parameters, TF32 off): cuBLAS and the CPU's BLAS
+sum the projections in other orders.
 """
 import numpy as np
 import pytest
@@ -24,6 +29,8 @@ from repro_torch.core.graph import zipf_edges
 from repro_torch.core.update import gather_scopes
 from repro_torch.kernels import als_normal_eq as als_port
 from repro_torch.kernels import ell_spmv as port
+from repro_torch.kernels import window_attention as wa
+from repro_torch.kernels.ref import decode_window_attention_ref
 
 SHAPES = [                       # (nv, deg, rows, feat)
     (1, 1, 1, 1),
@@ -231,3 +238,152 @@ def test_gpu_als_equals_cpu_als(cuda):
                                cpu.vertex_data["w"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gpu.globals["rmse"].cpu(), cpu.globals["rmse"],
                                rtol=1e-5, atol=0.0)
+
+
+# (b, h, hkv, w, dh): n_rep 1, 2, 4, 7 and 16; dh from 16 to 256, 100
+# not a multiple of 32; W from 1 to beyond one split, 513 not a multiple
+# of a tile
+ATTN_SHAPES = [
+    (1, 1, 1, 1, 16),
+    (3, 4, 4, 64, 64),
+    (2, 8, 4, 513, 128),
+    (4, 32, 8, 2048, 128),
+    (2, 7, 1, 700, 100),
+    (1, 16, 1, 300, 64),
+    (2, 8, 2, 1500, 256),
+    (5, 4, 2, 9000, 32),
+]
+
+
+def _attn_inputs(b, h, hkv, w, dh, dtype, device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, h, dh), generator=gen)
+    k = torch.randn((b, w, hkv, dh), generator=gen).to(dtype)
+    v = torch.randn((b, w, hkv, dh), generator=gen).to(dtype)
+    kvl = torch.randint(1, w + 1, (b,), generator=gen, dtype=torch.int32)
+    kvl[0] = w
+    if b > 1:
+        kvl[1] = 1
+    return q.to(device), k.to(device), v.to(device), kvl.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,w,dh", ATTN_SHAPES)
+def test_window_attention_matches_plain_version_on_card(cuda, b, h, hkv, w,
+                                                        dh, dtype):
+    q, k, v, kvl = _attn_inputs(b, h, hkv, w, dh, dtype, cuda)
+    before = wa.window_attention.launches
+    got = wa.window_attention(q, k, v, kvl)
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, dh)
+    want = decode_window_attention_ref(q, k, v, kvl)
+    assert float((got - want).abs().max()) <= 1e-5
+    cpu = wa.window_attention(q.cpu(), k.cpu(), v.cpu(), kvl.cpu())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_window_attention_reads_a_layer_slice_in_place(cuda):
+    """A [B, W, Hkv, dh] slice of the stacked cache (strided batch) and a
+    bf16 q give what contiguous float32 copies give."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    cache = torch.randn((3, 2, 600, 8, 128), generator=gen).to(
+        torch.bfloat16).to(cuda)
+    q = torch.randn((2, 32, 128), generator=gen).to(torch.bfloat16).to(cuda)
+    kvl = torch.tensor([600, 37], dtype=torch.int32, device=cuda)
+    got = wa.window_attention(q, cache[1], cache[2], kvl)
+    want = wa.window_attention(q.float(), cache[1].contiguous(),
+                               cache[2].contiguous(), kvl)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_unaligned_k_reads_elements(cuda, dtype):
+    """K whose rows do not start on 16 bytes (a view one element into a
+    wider buffer) takes the element-wise read and agrees all the same."""
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    buf = torch.randn((2, 300, 4, 129), generator=gen).to(dtype).to(cuda)
+    k = buf[..., 1:]
+    v = torch.randn((2, 300, 4, 128), generator=gen).to(dtype).to(cuda)
+    q = torch.randn((2, 8, 128), generator=gen).to(cuda)
+    kvl = torch.tensor([300, 123], dtype=torch.int32, device=cuda)
+    got = wa.window_attention(q, k, v, kvl)
+    want = decode_window_attention_ref(q, k, v, kvl)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_window_attention_splits_past_kv_len_weigh_nothing(cuda):
+    """A long W with short kv_len: most splits lie wholly past kv_len
+    (m = -inf, l = 0) and the combine must give them weight 0, not NaN."""
+    q, k, v, _ = _attn_inputs(4, 8, 2, 32768, 64, torch.bfloat16, cuda)
+    kvl = torch.tensor([1, 2, 129, 32768], dtype=torch.int32, device=cuda)
+    chunk, n_splits = wa.split_rows(4 * 2, 32768, torch.cuda
+                                    .get_device_properties(cuda)
+                                    .multi_processor_count)
+    assert n_splits > 4 and chunk > 129
+    got = wa.window_attention(q, k, v, kvl)
+    assert bool(torch.isfinite(got).all())
+    want = decode_window_attention_ref(q, k, v, kvl)
+    assert float((got - want).abs().max()) <= 1e-5
+    # kv_len = 1 returns row 0 of V exactly
+    assert torch.equal(got[0], v[0, 0].float().repeat_interleave(4, dim=0))
+
+
+@pytest.mark.cuda
+def test_reference_signature_shares_the_launch(cuda):
+    q, k, v, kvl = _attn_inputs(6, 1, 1, 1000, 64, torch.float32, cuda)
+    before = wa.window_attention.launches
+    got = wa.decode_window_attention(q[:, 0], k[:, :, 0], v[:, :, 0], kvl)
+    assert wa.window_attention.launches == before + 1
+    assert torch.equal(got, wa.window_attention(q, k, v, kvl)[:, 0])
+
+
+@pytest.mark.cuda
+def test_window_attention_raises_on_cuda_arguments_it_does_not_take(cuda):
+    q, k, v, kvl = _attn_inputs(2, 2, 1, 40, 300, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dh <= 256"):
+        wa.window_attention(q, k, v, kvl)
+    q, k, v, kvl = _attn_inputs(2, 2, 1, 40, 32, torch.float32, cuda)
+    strided = torch.cat([k, k], dim=-1)[..., ::2]        # stride 2 in dh
+    with pytest.raises(ValueError, match="unit stride"):
+        wa.window_attention(q, strided, strided, kvl)
+    with pytest.raises(ValueError, match="several devices"):
+        wa.window_attention(q, k, v, kvl.cpu())
+
+
+@pytest.mark.cuda
+def test_gpu_decode_equals_cpu_decode(cuda, monkeypatch):
+    """qwen3-4b reduced, float32 parameters, a random ring-wrapped cache:
+    four decode steps on the GPU against the same steps on the CPU, the
+    GPU's attention through the kernel (one launch a layer and step)."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.get("qwen3-4b").reduced()
+    params = model.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gparams = model.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu").to(cuda)
+    states = []
+    for dev in ("cpu", cuda):
+        st = engine.init_cache(cfg, 3, 96, dtype=torch.float32, device=dev)
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        st.cache_k.copy_(torch.randn(st.cache_k.shape, generator=gen))
+        st.cache_v.copy_(torch.randn(st.cache_v.shape, generator=gen))
+        st.cache_len.copy_(torch.tensor([96, 5, 400], dtype=torch.int32))
+        states.append(st)
+    tok = torch.tensor([[3], [77], [500]], dtype=torch.int32)
+    before = wa.window_attention.launches
+    cst, gst = states
+    for _ in range(4):
+        cl, cst = engine.decode_step(params, cfg, tok, cst)
+        gl, gst = engine.decode_step(gparams, cfg, tok.to(cuda), gst)
+        torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+        tok = torch.argmax(cl[:, :cfg.vocab], dim=-1)[:, None].int()
+    assert wa.window_attention.launches == before + 4 * cfg.n_layers
+    torch.testing.assert_close(gst.cache_k.cpu(), cst.cache_k, rtol=1e-4,
+                               atol=1e-4)

@@ -155,32 +155,53 @@ def test_unported_storage_options_raise(kwargs, roadmap):
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.serve import engine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     edges = random_graph(20, 40)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pagerank.build(edges, 20)
+    cfg = configs.get("qwen3-4b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.params_from_arrays({}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-4b"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_package_imports_neither_jax_nor_repro():
-    for path in [*PKG.rglob("*.py"), PKG.parents[1] / "chip_smoke.py"]:
+    """No module of the port -- every subpackage, the LLM stack's
+    ``configs``, ``models``, ``serve`` and ``launch`` included -- nor
+    ``chip_smoke.py`` imports JAX, the reference or ``ml_dtypes``."""
+    banned = ("jax", "jaxlib", "repro", "ml_dtypes")
+    paths = [*PKG.rglob("*.py"), PKG.parents[1] / "chip_smoke.py"]
+    subpackages = {p.relative_to(PKG).parts[0] for p in paths
+                   if p.parent != PKG and PKG in p.parents}
+    assert {"configs", "models", "serve", "launch", "kernels"} <= subpackages
+    for path in paths:
         for line in path.read_text().splitlines():
             line = line.strip()
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "repro"), \
-                    f"{path.name}: {line}"
+                assert mod not in banned, f"{path.name}: {line}"
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    assert "repro_torch.launch.serve" in mods
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+            f"for m in {banned!r}: sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "assert not any(k.split('.')[0] in ('jax', 'repro') and "
+            f"assert not any(k.split('.')[0] in {banned!r} and "
             "sys.modules[k] is not None for k in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -46,3 +46,13 @@ ENGINE_GRAPHS = {
     "zipf2000": (2000, lambda: zipf_edges(2000, alpha=2.0, max_deg=64,
                                           seed=1), 1e-4),
 }
+
+
+def reference_param_arrays(params) -> dict:
+    """The reference's parameter pytree as the flat numpy arrays
+    ``repro_torch.interop.params_from_arrays`` reads: keys are the
+    dict paths joined by ``.``, stacked layers keep their ``[L, ...]``
+    axis, and bfloat16 stays an ``ml_dtypes`` array."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(params)
+    return {".".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in flat}
