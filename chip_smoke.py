@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. build       — compile every CUDA source of the port with nvcc, all at
-                 once;
+                 once; print each kernel's registers and spills (ptxas)
+                 and the window_attention bf16 body's shared memory and
+                 blocks an SM at phase 8's head widths;
 2. kernels     — ``ell_spmv`` against its plain PyTorch version on the
                  card, at the PageRank path's full-size shapes (every
                  degree bucket of the 2,097,152-vertex Zipf graph at F=1,
@@ -45,7 +47,9 @@ Phases (any failure exits non-zero and prints no result):
                  32,768 cache with kv_len ragged and full, long_500k's
                  ring-wrapped 8,192-row window, each with a bf16 and an
                  f32 cache; the reference's signature at [128, 32768,
-                 128] and at W = 513), timed beside the plain version,
+                 128] and at W = 513; deepseek-coder-33b's 56/8 heads
+                 and gemma-7b's 16/16 heads of 256, bf16, batch 1 over a
+                 full 8,192-row ring), timed beside the plain version,
                  one library call (``scaled_dot_product_attention`` with
                  ``enable_gqa`` and a boolean mask) and the bound;
 9. serve parity — qwen3-4b at full width with 2 layers, float32 parameters,
@@ -61,7 +65,9 @@ Phases (any failure exits non-zero and prints no result):
                  request at 524,288 (long_500k, an 8,192-row ring),
                  launch counts set to 0 just before and read just after;
                  ms per step, tokens/s, peak memory, one step's layer
-                 breakdown and the device's idle share; the last step's
+                 breakdown and the device's idle share (the profiled
+                 step holds one window_attention kernel a layer, the
+                 merge inside it); the last step's
                  attention in layers 0 and 35 checked in float64 on the
                  host for sampled (request, head) pairs, and for every
                  request the whole of layers 0 and 35 (the inserted K/V
@@ -110,6 +116,10 @@ SERVE_ARCH = "qwen3-4b"
 SERVE_CASES = (("decode_32k", 4, 32_768), ("long_500k", 1, 524_288))
 SERVE_TOKENS = 16
 REF_SIG_BATCH = 128            # the reference signature's [BH, W, dh]
+# phase 8's other widths: deepseek-coder-33b's 56/8 heads (a group of 7)
+# and gemma-7b's 16/16 heads of 256, batch 1 over a full 8,192-row ring
+WIDE_ARCHS = ("deepseek-coder-33b", "gemma-7b")
+WIDE_RING = 8192
 # the kernel against its plain version: both float32, summed in other
 # orders (the kernel's online softmax over splits)
 ATTN_TOL = 1e-5
@@ -414,8 +424,9 @@ def layer_breakdown(torch, layers, run, prepare=lambda: None,
 
 def device_busy(torch, run, prepare=lambda: None):
     """Wall time, summed device time (None where the profiler shows no
-    device time), the ten costliest kernels and the number of kernels
-    launched, of one ``run(prepare())`` under torch.profiler."""
+    device time), every kernel as ``(device us, name, launches)`` from the
+    costliest down, and the number of kernels launched, of one
+    ``run(prepare())`` under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     arg = prepare()
     torch.cuda.synchronize()
@@ -432,10 +443,11 @@ def device_busy(torch, run, prepare=lambda: None):
     # device-side events only: an operator's row repeats its kernels' time
     kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    per = sorted(((getattr(e, attr), e.key) for e in kern), reverse=True)
-    busy_us = sum(t for t, _ in per)
+    per = sorted(((getattr(e, attr), e.key, e.count) for e in kern),
+                 reverse=True)
+    busy_us = sum(t for t, _, _ in per)
     n_kernels = sum(e.count for e in kern)
-    return (wall, (busy_us * 1e-6 if busy_us > 0 else None), per[:10],
+    return (wall, (busy_us * 1e-6 if busy_us > 0 else None), per,
             n_kernels)
 
 
@@ -500,7 +512,8 @@ def report_superstep(torch, engine, layers):
 
 def report_run(torch, what, layers, run, prepare=lambda: None, **kw):
     """Log the layer breakdown of one ``run(prepare())`` and, under
-    torch.profiler, the device's idle share."""
+    torch.profiler, the device's idle share; return the profile's
+    kernels (``device_busy``), empty where it shows no device time."""
     total_s, acc = layer_breakdown(torch, layers, run, prepare, **kw)
     log(f"one fresh {what}, layers bracketed by synchronize: "
         f"{1e3 * total_s:.2f} ms")
@@ -513,13 +526,14 @@ def report_run(torch, what, layers, run, prepare=lambda: None, **kw):
         wall_s, busy_s, top, n_kernels = None, None, [], 0
     if busy_s is None:
         log("device idle share: not measured (no device time in the trace)")
-        return
+        return []
     log(f"one fresh {what} under torch.profiler: wall "
         f"{1e3 * wall_s:.2f} ms, device busy {1e3 * busy_s:.2f} ms, "
         f"idle share {max(0.0, 1 - busy_s / wall_s):.3f}, {n_kernels} "
         f"device kernels")
-    for t, name in top:
+    for t, name, _ in top[:10]:
         log(f"  {t / 1e3:9.2f} ms  {name[:70]}")
+    return top
 
 
 def als_bound(nv, width, real, rows, d, fold=False):
@@ -841,6 +855,21 @@ def release(torch, ctx, *keys):
     torch.cuda.empty_cache()
 
 
+def log_attention_bodies(torch):
+    """The bf16 tensor-core body's compiled attributes at the head widths
+    phase 8 launches (the ptxas lines above hold every instantiation)."""
+    from repro_torch import configs
+    from repro_torch.kernels import window_attention as wa
+    for arch in (SERVE_ARCH, *WIDE_ARCHS):
+        dh = configs.get(arch).dh
+        i = wa.body_info(cuda_device(torch), dh)
+        log(f"  window_attention bf16 body at dh {dh} ({arch}): "
+            f"{i['registers']} registers, {i['spill_bytes']} bytes spilled, "
+            f"{i['static_smem']} bytes static + {i['dynamic_smem']} dynamic "
+            f"shared memory, {i['stages']} stages, {i['blocks_per_sm']} "
+            f"blocks of 128 threads an SM")
+
+
 def attention_bound(kv_len, h, hkv, dh, kv_bytes):
     """Least time for one window_attention call on this data: the larger
     of the bytes it must move (every valid K and V row once per KV head,
@@ -940,6 +969,12 @@ def phase_attention(torch, ctx):
         cases.append(attention_case(torch, f"reference signature, W={w}",
                                     REF_SIG_BATCH, 1, 1, w, dh, f32, "ragged",
                                     flush, gen, reference_signature=True))
+    # other group sizes and head widths of the repository's dense configs
+    for arch in WIDE_ARCHS:
+        c = configs.get(arch)
+        cases.append(attention_case(
+            torch, f"{arch}, bf16, {WIDE_RING}-row ring", 1, c.n_heads,
+            c.n_kv_heads, WIDE_RING, c.dh, bf16, "full", flush, gen))
     ctx["attn_cases"] = cases
     ctx["serve_n_layers"] = cfg.n_layers
 
@@ -1237,8 +1272,21 @@ def phase_serve_main(torch, ctx):
             nxt[:] = [torch.argmax(lg[:, :cfg.vocab], dim=-1)[:, None].int(),
                       st]
         nxt.append(state)
-        report_run(torch, f"{case} decode step", serve_layers(), one_step,
-                   other="other (residual adds, casts, host)")
+        kernels = report_run(torch, f"{case} decode step", serve_layers(),
+                             one_step,
+                             other="other (residual adds, casts, host)")
+        attn = [(t, name, n) for t, name, n in kernels
+                if "window_attention" in name]
+        if kernels:
+            log(f"{case}: window_attention in the profiled step: "
+                f"{sum(n for _, _, n in attn)} launches, "
+                f"{sum(t for t, _, _ in attn) / 1e3:.2f} ms of device time "
+                f"({', '.join(name[:40] for _, name, _ in attn)})")
+            # one kernel a layer: the merge runs inside the launch
+            if (sum(n for _, _, n in attn) != cfg.n_layers
+                    or any("combine" in name for _, name, _ in kernels)):
+                raise AssertionError(f"{case}: the step's window_attention "
+                                     f"kernels: {attn}")
         del state, nxt, logits
         torch.cuda.empty_cache()
     ctx.setdefault("launches", {})["window_attention"] = launches
@@ -1275,8 +1323,10 @@ def main() -> int:
         log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
         for name, text in logs.items():
             for line in text.splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     log(f"  {name}: {line.strip()}")
+        log_attention_bodies(torch)
     except Exception:
         traceback.print_exc()
         log("FAIL: phase 1 build")

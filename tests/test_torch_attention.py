@@ -176,16 +176,129 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         twa.window_attention(**args)
 
 
-@pytest.mark.parametrize("groups,w", [(32, 32768), (8, 8192), (128, 32768),
-                                      (128, 513), (1, 1), (4, 100),
-                                      (1, 524288), (2048, 64)])
-def test_split_rows_covers_w_and_fills_the_card(groups, w):
-    chunk, n = twa.split_rows(groups, w, 132)
-    assert chunk % twa._ROWS_QUANTUM == 0 and chunk * (n - 1) < w <= chunk * n
+@pytest.mark.parametrize("groups,w,n_rep,dh,dtype", [
+    (32, 32768, 4, 128, torch.bfloat16),      # decode_32k, qwen3-4b
+    (8, 8192, 4, 128, torch.bfloat16),        # long_500k's ring
+    (8, 8192, 7, 128, torch.bfloat16),        # deepseek-coder-33b's group
+    (16, 8192, 1, 256, torch.bfloat16),       # gemma-7b
+    (32, 32768, 4, 128, torch.float32),
+    (128, 32768, 1, 128, torch.float32),      # the reference signature
+    (128, 513, 1, 128, torch.float32),
+    (1, 1, 1, 16, torch.bfloat16),
+    (4, 100, 2, 64, torch.bfloat16),
+    (1, 524288, 8, 128, torch.bfloat16),
+    (2048, 64, 1, 64, torch.float32),
+    (2, 8191, 16, 64, torch.bfloat16),
+])
+def test_split_rows_covers_w_and_fills_the_card(groups, w, n_rep, dh, dtype):
+    n_sms, resident = 132, (1 if dh > 128 else 2)
+    chunk, n = twa.split_rows(groups, w, n_sms, n_rep, dh, dtype, resident)
+    # every row in exactly one split, each split whole tiles
+    assert chunk % twa._TILE_ROWS[dtype] == 0
+    assert chunk * (n - 1) < w <= chunk * n
+    assert 1 <= n <= twa._MAX_SPLITS
     if n > 1:
-        assert chunk >= 128
-    if w >= 128 * 4 * 132:       # enough rows: the blocks fill 132 SMs twice
-        assert groups * n >= 2 * 132
+        # the float32 partials (m, l, acc) each split writes and the merge
+        # reads, against the K and V rows the splits read
+        part = groups * n * n_rep * (dh + 2) * 4 * 2
+        kv = groups * w * 2 * dh * dtype.itemsize
+        assert part <= twa._PART_SHARE * kv
+        assert chunk >= twa._MIN_SPLIT_ROWS
+    if dtype == torch.float32:
+        # short splits: the blocks fill the card many times over
+        if w >= 4 * twa._MIN_SPLIT_ROWS * twa._F32_BLOCKS_PER_SM * n_sms \
+                / groups:
+            assert groups * n >= twa._F32_BLOCKS_PER_SM * n_sms // 2
+    else:
+        # whole waves: the last one at least 90 % full where W has the rows
+        slots = resident * n_sms
+        blocks = groups * n
+        fill = blocks / (-(-blocks // slots) * slots)
+        if w >= 2 * twa._MIN_SPLIT_ROWS * slots / groups:
+            assert fill >= twa._WAVE_FILL
+        # and no fewer splits would fill them as well
+        for m in range(1, n):
+            c = -(-(-(-w // m)) // 64) * 64
+            other = -(-w // c) * groups
+            assert other / (-(-other // slots) * slots) < min(
+                twa._WAVE_FILL, fill) or -(-w // c) == n
+
+
+def _mma_emulation(q, k, v, kv_len, chunk, two_terms=True):
+    """The tensor-core body's arithmetic in plain torch: K and V in bf16
+    (exact operands), q and p each as bf16 hi + lo terms (one term with
+    ``two_terms=False``), every sum in float32; per split, 4 warps of 16
+    rows a 64-row tile, each with its own online softmax, merged in the
+    block and then across splits as the kernel merges them."""
+    bf, f32 = torch.bfloat16, torch.float32
+    b, h, dh = q.shape
+    hkv = k.shape[2]
+    n_rep = h // hkv
+    scale = 1.0 / dh ** 0.5
+
+    def terms(x):
+        hi = x.to(bf).to(f32)
+        return (hi, (x - hi).to(bf).to(f32)) if two_terms else (hi,)
+
+    def merge(states):
+        mx = torch.stack([m for m, _, _ in states]).amax(0)
+        wts = [torch.where(m == -torch.inf, 0.0, torch.exp(m - mx))
+               for m, _, _ in states]
+        return (mx, sum(w_ * l for w_, (_, l, _) in zip(wts, states)),
+                sum(w_[..., None] * a for w_, (_, _, a) in zip(wts, states)))
+
+    qt = terms(q.to(f32).reshape(b, hkv, n_rep, dh))
+    out = torch.empty(b, h, dh, dtype=f32)
+    for bi in range(b):
+        n = int(kv_len[bi])
+        splits = []
+        for s0 in range(0, n, chunk):
+            end = min(s0 + chunk, n)
+            warps = []
+            for wi in range(4):
+                m = torch.full((hkv, n_rep), -torch.inf)
+                l = torch.zeros(hkv, n_rep)
+                acc = [torch.zeros(hkv, n_rep, dh) for _ in qt]
+                for t0 in range(s0 + 16 * wi, end, 64):
+                    kt = k[bi, t0:min(t0 + 16, end)].to(f32).transpose(0, 1)
+                    vt = v[bi, t0:min(t0 + 16, end)].to(f32).transpose(0, 1)
+                    s = sum(qq[bi] @ kt.mT for qq in qt) * scale
+                    mn = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp(m - mn)
+                    p = torch.exp(s - mn[..., None])
+                    l = l * alpha + p.sum(-1)
+                    acc = [a * alpha[..., None] + pp @ vt
+                           for a, pp in zip(acc, terms(p))]
+                    m = mn
+                warps.append((m, l, sum(acc)))
+            splits.append(merge(warps))
+        _, l, acc = merge(splits)
+        out[bi] = (acc / l[..., None]).reshape(h, dh)
+    return out
+
+
+@pytest.mark.parametrize("n_rep", [1, 4, 7])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_split_precision_tensor_core_arithmetic_meets_the_gate(n_rep, dh):
+    """q and p as two bf16 terms each with float32 sums stay within the
+    kernel's 1e-5 of the float32 plain version, at qwen3-4b's 8 KV heads
+    cut to 2, W = 513 (not whole tiles) in three splits and ragged
+    kv_len; one bf16 term each does not."""
+    rng = np.random.default_rng(10 * n_rep + dh)
+    b, hkv, w = 3, 2, 513
+    q = torch.from_numpy(rng.normal(size=(b, hkv * n_rep, dh))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(b, w, hkv, dh))
+                         .astype(np.float32)).to(torch.bfloat16)
+    v = torch.from_numpy(rng.normal(size=(b, w, hkv, dh))
+                         .astype(np.float32)).to(torch.bfloat16)
+    kvl = torch.tensor([w, 1, int(rng.integers(2, w))], dtype=torch.int32)
+    chunk = 3 * 64              # three splits over W, the last ragged
+    want = tref.decode_window_attention_ref(q, k, v, kvl)
+    got = _mma_emulation(q, k, v, kvl, chunk)
+    assert float((got - want).abs().max()) <= 1e-5
+    one_term = _mma_emulation(q, k, v, kvl, chunk, two_terms=False)
+    assert float((one_term - want).abs().max()) > 1e-5
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

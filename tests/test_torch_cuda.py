@@ -14,8 +14,9 @@ normal equations; its factors pass through cuSOLVER's LU on the card and
 LAPACK's on the CPU, so they are held to rtol = 1e-4, atol = 1e-5.
 The window-attention kernel is held to its plain version within 1e-5
 absolute: both compute in float32, but the kernel's online softmax sums
-in another order.  Decoding on the GPU is held to decoding on the CPU
-within 1e-4 (float32 parameters, TF32 off): cuBLAS and the CPU's BLAS
+in another order, and with a bf16 cache it takes q and p as two bf16
+terms each on the tensor cores (~2e-6 from float32).  Decoding on the
+GPU is held to decoding on the CPU within 1e-4 (float32 parameters, TF32 off): cuBLAS and the CPU's BLAS
 sum the projections in other orders.
 """
 import numpy as np
@@ -297,6 +298,8 @@ def test_window_attention_reads_a_layer_slice_in_place(cuda):
     want = wa.window_attention(q.float(), cache[1].contiguous(),
                                cache[2].contiguous(), kvl)
     assert torch.equal(got, want)
+    plain = decode_window_attention_ref(q, cache[1], cache[2], kvl)
+    assert float((got - plain).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -321,9 +324,10 @@ def test_window_attention_splits_past_kv_len_weigh_nothing(cuda):
     (m = -inf, l = 0) and the combine must give them weight 0, not NaN."""
     q, k, v, _ = _attn_inputs(4, 8, 2, 32768, 64, torch.bfloat16, cuda)
     kvl = torch.tensor([1, 2, 129, 32768], dtype=torch.int32, device=cuda)
-    chunk, n_splits = wa.split_rows(4 * 2, 32768, torch.cuda
-                                    .get_device_properties(cuda)
-                                    .multi_processor_count)
+    chunk, n_splits = wa.split_rows(
+        4 * 2, 32768, torch.cuda.get_device_properties(
+            cuda).multi_processor_count, 4, 64, torch.bfloat16,
+        wa.body_info(cuda, 64)["blocks_per_sm"])
     assert n_splits > 4 and chunk > 129
     got = wa.window_attention(q, k, v, kvl)
     assert bool(torch.isfinite(got).all())
@@ -331,6 +335,60 @@ def test_window_attention_splits_past_kv_len_weigh_nothing(cuda):
     assert float((got - want).abs().max()) <= 1e-5
     # kv_len = 1 returns row 0 of V exactly
     assert torch.equal(got[0], v[0, 0].float().repeat_interleave(4, dim=0))
+
+
+def _edge_lens(w, chunk):
+    """kv_len at 1, either side of a tile edge and of a split edge, W."""
+    lens = [1, 63, 64, 65, chunk - 1, chunk, chunk + 1, w]
+    return torch.tensor([min(max(n, 1), w) for n in lens], dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [513, 8191])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 7, 8])
+def test_window_attention_tensor_core_body(cuda, n_rep, dh, w):
+    """The bf16 cache's body (q and p as two bf16 terms on mma.sync)
+    against the float32 plain version within 1e-5, at every group size a
+    block holds, dh up to 256, W not a whole number of tiles, and kv_len
+    on both sides of a tile's and a split's edge."""
+    hkv = 2
+    chunk, n = wa.split_rows(8 * hkv, w, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, n_rep, dh, torch.bfloat16,
+        wa.body_info(cuda, dh)["blocks_per_sm"])
+    q, k, v, _ = _attn_inputs(8, hkv * n_rep, hkv, w, dh, torch.bfloat16,
+                              cuda, seed=n_rep * 1000 + dh + w)
+    kvl = _edge_lens(w, chunk).to(cuda)
+    before = wa.window_attention.launches
+    got = wa.window_attention(q, k, v, kvl)
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + 1
+    want = decode_window_attention_ref(q, k, v, kvl)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_window_attention_tickets_reset_between_launches(cuda):
+    """Launches of different shapes back to back on one stream, with no
+    wait between them: each merges its own splits (the last split of a
+    group zeroes its ticket), one counted launch a call."""
+    shapes = [(4, 32, 8, 32768, 128), (3, 8, 2, 8191, 64),
+              (4, 32, 8, 32768, 128), (2, 4, 4, 9000, 256)]
+    cases = []
+    for i, (b, h, hkv, w, dh) in enumerate(shapes):
+        q, k, v, _ = _attn_inputs(b, h, hkv, w, dh, torch.bfloat16, cuda,
+                                  seed=20 + i)
+        kvl = torch.full((b,), w, dtype=torch.int32, device=cuda)
+        kvl[-1] = w // 2 + 1
+        cases.append((q, k, v, kvl))
+    before = wa.window_attention.launches
+    outs = [wa.window_attention(*c) for c in cases]
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + len(cases)
+    for c, got in zip(cases, outs):
+        assert float((got - decode_window_attention_ref(*c)).abs().max()) \
+            <= 1e-5
 
 
 @pytest.mark.cuda
