@@ -10,13 +10,18 @@ Phases (any failure exits non-zero and prints no result):
                  and the window_attention bf16 body's shared memory and
                  blocks an SM at phase 8's head widths;
 2. kernels     — ``ell_spmv`` against its plain PyTorch version on the
-                 card, at the PageRank path's full-size shapes (every
-                 degree bucket of the 2,097,152-vertex Zipf graph at F=1,
-                 one ``ell_fold`` shape, F=32, bf16): float32 bitwise,
-                 bf16 within 2e-2; with CUDA-event times beside the plain
-                 version, one library call (``torch.sparse.mm`` on the
-                 same matrix in CSR) and the least time the card could
-                 take (the bound);
+                 card, at the PageRank path's full-size shapes: every
+                 degree bucket of the 2,097,152-vertex Zipf graph at F=1
+                 as a launch of its own, then the whole sweep as one
+                 launch (``ell_spmv_bucketed``); shapes that stress the
+                 mapping (an empty bucket, widths 3, 667, 1,024 and
+                 5,000, an all-masked bucket, masked rows reading inf),
+                 each alone and all in one launch; one ``ell_fold``
+                 shape, F=32, bf16: float32 bitwise, bf16 within 2e-2;
+                 with CUDA-event times beside the plain version, one
+                 library call (``torch.sparse.mm`` on the same matrix in
+                 CSR: a bucket's, or the whole sweep's) and the least
+                 time the card could take (the bound);
 3. parity      — PageRank on the 2,000-vertex Zipf graph through
                  ``api.run``, on the GPU and on the CPU: ranks, counts and
                  syncs bitwise equal; kernel arm == dense arm on the GPU;
@@ -187,15 +192,15 @@ def touched_rows(torch, nbrs, real=None):
     return int(torch.unique(nbrs if real is None else nbrs[real]).numel())
 
 
-def bound_ms(nv, width, rows, feat, elt, mask_bytes):
-    """Least time for one ell_spmv call: the larger of the bytes it must
-    move (nbrs, w, the ``rows`` rows of x it reads and the row mask read
-    once, y written once) over the HBM rate and its flops (one mul for
-    the mask gate, one mul and one add per slot and feature) over the
-    float32 rate."""
-    nbytes = (nv * width * (4 + elt) + rows * feat * elt + mask_bytes
+def bound_ms(nv, slots, rows, feat, elt, mask_bytes):
+    """Least time for one ell_spmv launch over ``nv`` rows of ``slots``
+    slots in all: the larger of the bytes it must move (nbrs, w, the
+    ``rows`` rows of x it reads and the row mask read once, y written
+    once) over the HBM rate and its flops (one mul for the mask gate,
+    one mul and one add per slot and feature) over the float32 rate."""
+    nbytes = (slots * (4 + elt) + rows * feat * elt + mask_bytes
               + nv * feat * elt)
-    flops = nv * width * (1 + 2 * feat)
+    flops = slots * (1 + 2 * feat)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -208,23 +213,69 @@ def gathered_bound_ms(nv, width, feat):
                   + nv * feat * 4) / HBM_BYTES_PER_S
 
 
-def csr_of(torch, nbrs, w, real, row_mask, n_cols):
-    """The block's matrix in CSR (real slots only, columns sorted),
-    the input of the library yardstick."""
-    nv, width = nbrs.shape
-    rows = torch.arange(nv, device=nbrs.device)[:, None].expand(nv, width)
-    key = (rows[real] * n_cols + nbrs[real].long())
-    order = torch.argsort(key)
-    vals = (w * row_mask.to(w.dtype)[:, None])[real][order]
-    cols = nbrs[real].long()[order]
-    crow = torch.zeros(nv + 1, dtype=torch.int64, device=nbrs.device)
-    crow[1:] = torch.cumsum(real.sum(dim=1), 0)
-    return torch.sparse_csr_tensor(crow, cols, vals, size=(nv, n_cols))
+def csr_of(torch, blocks, n_cols):
+    """The matrix of ``blocks`` (``(nbrs, w, real, row_mask)`` each, their
+    rows one after another) in CSR, real slots only, columns sorted: the
+    input of the library yardstick."""
+    rows, cols, vals, counts, base = [], [], [], [], 0
+    for nbrs, w, real, row_mask in blocks:
+        nv, width = nbrs.shape
+        r = torch.arange(nv, device=nbrs.device)[:, None].expand(nv, width)
+        rows.append(base + r[real])
+        cols.append(nbrs[real].long())
+        vals.append((w * row_mask.to(w.dtype)[:, None])[real])
+        counts.append(real.sum(dim=1))
+        base += nv
+    rows, cols, vals, counts = (torch.cat(t) for t in (rows, cols, vals,
+                                                        counts))
+    order = torch.argsort(rows * n_cols + cols)
+    crow = torch.zeros(base + 1, dtype=torch.int64, device=cols.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_csr_tensor(crow, cols[order], vals[order],
+                                   size=(base, n_cols))
+
+
+def bits_differ(torch, a, b):
+    """Elements of two float tensors whose bits differ, a NaN against a
+    NaN counting as equal (the payload is the card's)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return int(((a.view(view) != b.view(view))
+                & ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+
+def stress_buckets(torch, gen, dev, n_src):
+    """``(label, nbrs, w, row_mask)`` buckets that stress the kernel's
+    mapping over an x of ``n_src + 1`` rows whose last row is inf: an
+    empty bucket, odd widths, rows wider than the 2,048 slots a block
+    gathers in one pass (taken in chunks), an all-masked bucket, and
+    masked rows that read the inf row through out-of-range indices."""
+    def bucket(nv, width, p_on):
+        nbrs = torch.randint(-3, n_src, (nv, width), generator=gen,
+                             device=dev, dtype=torch.int32)
+        w = (torch.rand((nv, width), generator=gen, device=dev)
+             * (torch.rand((nv, width), generator=gen, device=dev) < 0.7))
+        mask = torch.rand(nv, generator=gen, device=dev) < p_on
+        return nbrs, w, mask
+    out = [(f"{label} [{nv}, {width}]", *bucket(nv, width, p_on))
+           for label, nv, width, p_on in (
+               ("empty", 0, 8, 0.8), ("W=3", 4097, 3, 0.8),
+               ("W=667", 300, 667, 0.8), ("W=1024", 200, 1024, 0.8),
+               ("W=5000 in chunks", 20, 5000, 0.8),
+               ("all masked", 500, 16, 0.0))]
+    nbrs, w, mask = bucket(64, 4, 0.8)
+    nbrs[:32] = n_src + 5            # clamps to the inf row
+    mask[:16] = False
+    out.append(("masked rows read inf [64, 4]", nbrs, w, mask))
+    return out
 
 
 def phase_kernels(torch, ctx):
-    """Kernel vs plain version at the main path's shapes."""
-    from repro_torch.kernels.ell_spmv import ell_fold, ell_spmv, ell_spmv_plain
+    """Kernel vs plain version at the main path's shapes: every bucket as
+    a launch of its own, the whole sweep as one launch, shapes that
+    stress the mapping, a fold, F = 32 and bf16."""
+    from repro_torch.kernels.ell_spmv import (ell_fold, ell_spmv,
+                                              ell_spmv_bucketed,
+                                              ell_spmv_plain)
     dev = ctx["dev"]
     graph = ctx["graph"]
     ell = graph.ell
@@ -233,10 +284,8 @@ def phase_kernels(torch, ctx):
     n = graph.n_vertices
     x = torch.rand((n, 1), generator=gen, device=dev) + 0.5
     w_edge = graph.edge_data["w"]
-    rows_out, errs = [], []
-    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0)
-    bound_by = set()
+    rows_out, errs, blocks, plains = [], [], [], []
+    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0)
     log("times: device ms (call ms with the host's enqueue), L2 flushed")
     log(f"{'bucket':>6} {'Nv_b':>9} {'W_b':>4} {'ms':>9} {'call':>8} "
         f"{'plain_ms':>9} {'lib_ms':>9} {'lib_call':>8} {'bound_ms':>9} "
@@ -250,13 +299,15 @@ def phase_kernels(torch, ctx):
         y = ell_spmv(*args)
         yp = ell_spmv_plain(*args)
         torch.cuda.synchronize()
-        mism = int((y != yp).sum())
+        mism = bits_differ(torch, y, yp)
         err = float((y - yp).abs().max()) if nv else 0.0
         errs.append(err)
         if mism:
             raise AssertionError(f"bucket {b}: {mism} f32 elements differ "
                                  f"from the plain version (max {err})")
-        csr = csr_of(torch, nbrs, w, real, mask, n)
+        blocks.append((nbrs, w, real, mask))
+        plains.append(yp)
+        csr = csr_of(torch, [blocks[-1]], n)
         ylib = torch.sparse.mm(csr, x)
         lib_err = float((ylib - y).abs().max())
         ms, call_ms = time_cuda(torch, lambda: ell_spmv(*args), 20, flush)
@@ -264,9 +315,8 @@ def phase_kernels(torch, ctx):
                                 flush)
         lib_ms, lib_call = time_cuda(torch, lambda: torch.sparse.mm(csr, x),
                                      20, flush)
-        bms, by = bound_ms(nv, width, touched_rows(torch, nbrs, real), 1, 4,
-                           nv)
-        bound_by.add(by)
+        bms, _ = bound_ms(nv, nv * width, touched_rows(torch, nbrs, real),
+                          1, 4, nv)
         gms = gathered_bound_ms(nv, width, 1)
         log(f"{b:>6} {nv:>9} {width:>4} {ms:>9.4f} {call_ms:>8.4f} "
             f"{plain_ms:>9.4f} {lib_ms:>9.4f} {lib_call:>8.4f} {bms:>9.4f} "
@@ -276,15 +326,73 @@ def phase_kernels(torch, ctx):
                              library_ms=lib_ms,
                              bound_ms=bms, gathered_bound_ms=gms,
                              mismatches=mism))
-        tot["ms"] += ms
-        tot["call_ms"] += call_ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += bms
-        tot["library_ms"] += lib_ms
-    log(f"one bucket sweep (sum over buckets): kernel {tot['ms']:.4f} ms "
-        f"({tot['call_ms']:.4f} ms with the host), "
-        f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} "
-        f"ms, bound {tot['bound_ms']:.4f} ms ({'/'.join(sorted(bound_by))})")
+        for k, v in (("ms", ms), ("call_ms", call_ms),
+                     ("plain_ms", plain_ms), ("library_ms", lib_ms)):
+            tot[k] += v
+    log(f"the buckets one launch each (sums): kernel {tot['ms']:.4f} ms "
+        f"({tot['call_ms']:.4f} ms with the host), plain "
+        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms")
+
+    # the whole sweep: one launch, against one library call on its matrix
+    nbrs_l, w_l, m_l = ([blk[i] for blk in blocks] for i in (0, 1, 3))
+    before = ell_spmv.launches
+    ys = ell_spmv_bucketed(nbrs_l, w_l, x, m_l)
+    launched = ell_spmv.launches - before
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, ys, torch.cat(plains))
+    if mism or launched != 1:
+        raise AssertionError(f"one-launch sweep: {mism} f32 elements differ "
+                             f"from the plain version, {launched} launches")
+    csr = csr_of(torch, blocks, n)
+    lib_err = float((torch.sparse.mm(csr, x) - ys).abs().max())
+    ms, call_ms = time_cuda(
+        torch, lambda: ell_spmv_bucketed(nbrs_l, w_l, x, m_l), 20, flush)
+    plain_ms, _ = time_cuda(
+        torch, lambda: [ell_spmv_plain(nb, w, x, m)
+                        for nb, w, _, m in blocks], 3, flush)
+    lib_ms, lib_call = time_cuda(torch, lambda: torch.sparse.mm(csr, x), 20,
+                                 flush)
+    nv_all = sum(nb.shape[0] for nb in nbrs_l)
+    touched = int(torch.unique(torch.cat(
+        [nb[real] for nb, _, real, _ in blocks])).numel())
+    bms, by = bound_ms(nv_all, sum(nb.numel() for nb in nbrs_l), touched, 1,
+                       4, nv_all)
+    log(f"one-launch sweep [{nv_all} rows, {ell.padded_slots} slots, "
+        f"{touched} rows of x]: kernel {ms:.4f} ms ({call_ms:.4f} with the "
+        f"host), plain {plain_ms:.4f}, library one call {lib_ms:.4f} "
+        f"({lib_call:.4f}; max |diff| {lib_err:.2e}), per-bucket library "
+        f"sum {tot['library_ms']:.4f}, bound {bms:.4f} ms ({by}; kernel / "
+        f"bound {ms / bms:.2f}), mismatches 0, launches 1")
+    ctx["kernel_sweep"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                               bucket_library_ms=tot["library_ms"],
+                               bucket_ms=tot["ms"])
+    del csr, ys, plains
+
+    # shapes that stress the mapping: each alone, then all in one launch
+    n_src = 100_000
+    xs = torch.randn((n_src + 1, 1), generator=gen, device=dev)
+    xs[n_src] = float("inf")
+    cases = stress_buckets(torch, gen, dev, n_src)
+    for label, nbrs, w, mask in cases:
+        y = ell_spmv(nbrs, w, xs, mask)
+        yp = ell_spmv_plain(nbrs, w, xs, mask)
+        torch.cuda.synchronize()
+        mism = bits_differ(torch, y, yp)
+        log(f"stress {label}: mismatches {mism}, NaN rows "
+            f"{int(torch.isnan(y).sum())}")
+        if mism:
+            raise AssertionError(f"stress {label}: {mism} f32 elements differ")
+        if label.startswith("masked rows") and not torch.isnan(y[:16]).all():
+            raise AssertionError("a masked row that reads inf is not NaN")
+    y = ell_spmv_bucketed([c[1] for c in cases], [c[2] for c in cases], xs,
+                          [c[3] for c in cases])
+    yp = torch.cat([ell_spmv_plain(nb, w, xs, m) for _, nb, w, m in cases])
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, y, yp)
+    log(f"stress buckets in one launch: mismatches {mism}")
+    if mism:
+        raise AssertionError(f"stress launch: {mism} f32 elements differ")
 
     # ell_fold at the dense arm's shape for the bucket with most slots
     b = max(range(ell.n_buckets), key=lambda i: ell.bucket_launches[i][0]
@@ -298,13 +406,13 @@ def phase_kernels(torch, ctx):
     yk = ell_fold(wf, vals, mask)
     yp = ell_spmv_plain(idx, wf, vals.reshape(-1, 1), mask)
     torch.cuda.synchronize()
-    mism = int((yk != yp).sum())
+    mism = bits_differ(torch, yk, yp)
     if mism:
         raise AssertionError(f"ell_fold: {mism} elements differ")
     fold_ms, _ = time_cuda(torch, lambda: ell_fold(wf, vals, mask), 20,
                            flush)
     log(f"ell_fold [{nv}, {width}, 1]: {fold_ms:.4f} ms, mismatches 0, "
-        f"bound {bound_ms(nv, width, nv * width, 1, 4, nv)[0]:.4f} ms")
+        f"bound {bound_ms(nv, nv * width, nv * width, 1, 4, nv)[0]:.4f} ms")
 
     # wide features, float32 and bfloat16
     for dtype, feat in ((torch.float32, 32), (torch.bfloat16, 1),
@@ -318,7 +426,7 @@ def phase_kernels(torch, ctx):
         y = ell_spmv(nbrs, w, xs, mask)
         yp = ell_spmv_plain(nbrs, w, xs, mask)
         torch.cuda.synchronize()
-        mism = int((y != yp).sum())
+        mism = bits_differ(torch, y, yp)
         err = float((y.float() - yp.float()).abs().max())
         if dtype == torch.float32 and mism:
             raise AssertionError(f"F={feat} f32: {mism} elements differ")
@@ -328,13 +436,12 @@ def phase_kernels(torch, ctx):
         ms, _ = time_cuda(torch, lambda: ell_spmv(nbrs, w, xs, mask), 20,
                           flush)
         elt = 2 if dtype == torch.bfloat16 else 4
-        bms = bound_ms(nv, width, touched_rows(torch, nbrs), feat, elt, nv)[0]
+        bms = bound_ms(nv, nv * width, touched_rows(torch, nbrs), feat, elt,
+                       nv)[0]
         log(f"ell_spmv [{nv}, {width}] F={feat} {str(dtype)[6:]}: {ms:.4f} "
             f"ms, bound {bms:.4f} ms, mismatches {mism}, max |diff| "
             f"{err:.2e}")
     ctx["kernel_rows"] = rows_out
-    tot["bound_by"] = "/".join(sorted(bound_by))
-    ctx["kernel_totals"] = tot
     ctx["kernel_max_err"] = max(errs)
 
 
@@ -500,14 +607,20 @@ def phase_main(torch, ctx):
     if rel >= 1e-4:
         raise AssertionError(f"total_rank off by {rel} relative")
 
-    report_superstep(torch, res.engine, pagerank_layers())
+    top = report_superstep(torch, res.engine, pagerank_layers())
+    spmv = [(t, c) for t, name, c in top if "ell_spmv" in name]
+    if top:
+        log(f"ell_spmv in the profiled superstep: "
+            f"{sum(t for t, _ in spmv) / 1e3:.3f} ms device time, "
+            f"{sum(c for _, c in spmv)} launches")
 
 
 def report_superstep(torch, engine, layers):
     """Log one fresh superstep's layer breakdown and, under
-    torch.profiler, the device's idle share."""
-    report_run(torch, "superstep", layers, engine._superstep,
-               engine.init_state)
+    torch.profiler, the device's idle share; return the profile's
+    kernels (``report_run``)."""
+    return report_run(torch, "superstep", layers, engine._superstep,
+                      engine.init_state)
 
 
 def report_run(torch, what, layers, run, prepare=lambda: None, **kw):
@@ -1372,16 +1485,15 @@ def main() -> int:
         log(f"FAILED: {failed}")
         return 1
 
-    tot = ctx["kernel_totals"]
+    sweep = ctx["kernel_sweep"]       # a PageRank sweep, one launch
     kernels = [{
         "name": "ell_spmv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
         "replaces": "src/repro/kernels/ell_spmv.py:48",
         "launches": ctx["launches"]["ell_spmv"],
         "max_abs_err": ctx["kernel_max_err"],
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
-        "library_ms": tot["library_ms"],
+        **{k: sweep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
     }]
     folds = ctx["als_folds"]
     kernels.append({

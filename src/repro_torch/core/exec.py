@@ -11,7 +11,7 @@ The port of ``repro.core.exec`` for the bucket dispatch path:
   out-of-range row;
 * ``dispatch_update`` — scope materialization and update dispatch:
   dense scopes, or the aggregator fast path through the ``ell_spmv``
-  CUDA kernel, one launch per degree bucket;
+  CUDA kernel, one launch over every degree bucket;
 * ``apply_batch`` / ``refresh_syncs`` — one conflict-free batch end to
   end, and the periodic sync refresh;
 * ``ExecutorCore`` — a host loop over supersteps that ends when the
@@ -33,7 +33,7 @@ import torch
 from repro_torch.core.graph import DataGraph
 from repro_torch.core.sync import SyncOp
 from repro_torch.core.update import UpdateFn, gather_scopes, scatter_result
-from repro_torch.kernels.ell_spmv import ell_fold, ell_spmv_bucketed
+from repro_torch.kernels.ell_spmv import ell_fold_bucketed, ell_spmv_bucketed
 
 
 # ----------------------------------------------------------------------
@@ -157,14 +157,14 @@ def _owner_rows(ell, y_rows, ids, sel):
 
 
 def bucketed_dense_fold(ell, ids, sel, w, vals):
-    """Reduce a dense batch scope through per-bucket kernel folds, at
-    exactly the kernel path's ``[Nv_b, W_b]`` launch shapes and with the
-    same row gate, so both arms run one accumulation."""
+    """Reduce a dense batch scope through the kernel's fold of every
+    bucket (one launch), at exactly the kernel path's ``[Nv_b, W_b]``
+    shapes and with the same row gate, so both arms run one
+    accumulation."""
     row_masks = ell.bucket_slices(ell.row_activation(ids, sel))
     w_blocks, v_blocks = route_batch_to_buckets(ell, ids, sel, w, vals)
-    ys = [ell_fold(wbuf, vbuf, row_mask=rm)
-          for wbuf, vbuf, rm in zip(w_blocks, v_blocks, row_masks)]
-    return _owner_rows(ell, torch.cat(ys, dim=0), ids, sel)
+    y_rows = ell_fold_bucketed(w_blocks, v_blocks, row_masks=row_masks)
+    return _owner_rows(ell, y_rows, ids, sel)
 
 
 def dispatch_update(struct, update_fn: UpdateFn, vertex_data, edge_data,
@@ -174,8 +174,8 @@ def dispatch_update(struct, update_fn: UpdateFn, vertex_data, edge_data,
     An update that declares a ``NeighborAggregator`` skips the dense
     ``[B, D, F]`` neighbour-data gather when ``use_kernel``: a lite
     scope is materialized and the aggregation runs through
-    ``ell_spmv_bucketed``, one kernel launch per degree bucket over the
-    bucket's own rows.  With ``use_kernel=False`` the dense scope is
+    ``ell_spmv_bucketed``, one kernel launch over every degree bucket,
+    each on its own rows.  With ``use_kernel=False`` the dense scope is
     materialized and reduced through ``bucketed_dense_fold`` — the same
     kernel at the same shapes — so the two arms are bitwise equal.
     """

@@ -3,8 +3,8 @@
 The port of ``repro.core.graph``.  The adjacency is the same
 **degree-bucketed sliced ELL**: vertices are permuted into width buckets
 (2, 4, ..., ``max_deg``), each bucket stores its own padded
-``[Nv_b, W_b]`` block, and the aggregation kernel runs one launch per
-bucket at the bucket's width.  The builder is the reference's, step for
+``[Nv_b, W_b]`` block, and the aggregation kernel takes every bucket
+at its own width, all in one launch.  The builder is the reference's, step for
 step, so every block, permutation and edge renumbering is bitwise the
 reference's (``tests/test_torch_graph.py``).
 

@@ -96,7 +96,106 @@ def test_entry_points_share_the_launch(cuda):
     vals = x[nbrs.long()]                               # [Nv, W, 1]
     assert torch.equal(port.ell_fold(w, vals, mask), y)
     assert torch.equal(port.ell_spmv_batched(nbrs, w, x, mask), y)
-    assert port.ell_spmv.launches == before + 5
+    # one launch each: the bucketed call's two buckets share one
+    assert port.ell_spmv.launches == before + 4
+
+
+def _bucket_set(seed, feat, dtype, device):
+    """A random table: 1-8 buckets, some empty, widths 0-1,024 (odd ones
+    included), out-of-range indices, bool, float or no row masks."""
+    rng = np.random.default_rng(seed)
+    rows = 500
+    x = torch.from_numpy(rng.normal(size=(rows, feat))).to(dtype).to(device)
+    buckets = []
+    for b in range(int(rng.integers(1, 9))):
+        nv = int(rng.choice([0, 1, 7, 33, 300, 1000]))
+        width = int(rng.choice([0, 1, 2, 3, 4, 8, 13, 16, 62, 64, 128, 256,
+                                257, 667, 1024]))
+        nbrs = torch.from_numpy(
+            rng.integers(-2, rows + 2, (nv, width)).astype(np.int32))
+        w = torch.from_numpy(rng.random((nv, width))
+                             * (rng.random((nv, width)) < 0.7)).to(dtype)
+        mask = [None, torch.from_numpy(rng.random(nv) < 0.8),
+                torch.from_numpy(rng.random(nv)).to(dtype)][b % 3]
+        buckets.append((nbrs.to(device), w.to(device),
+                        None if mask is None else mask.to(device)))
+    return buckets, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("feat", [1, 32])
+@pytest.mark.parametrize("seed", range(6))
+def test_table_launch_matches_plain_version(cuda, seed, feat, dtype):
+    buckets, x = _bucket_set(seed, feat, dtype, cuda)
+    masks = [m for _, _, m in buckets]
+    want = torch.cat([port.ell_spmv_plain(nb, w, x, m)
+                      for nb, w, m in buckets])
+    before = port.ell_spmv.launches
+    got = port.ell_spmv_bucketed([nb for nb, _, _ in buckets],
+                                 [w for _, w, _ in buckets], x, masks)
+    torch.cuda.synchronize()
+    assert port.ell_spmv.launches == before + (1 if got.numel() else 0)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_wide_rows_in_chunks_match_plain_version(cuda):
+    # rows wider than the slots a block gathers in one pass
+    nbrs, w, x, mask = _inputs(9, port.TILE + 905, 3000, 1, torch.float32,
+                               cuda)
+    assert torch.equal(port.ell_spmv(nbrs, w, x, mask),
+                       port.ell_spmv_plain(nbrs, w, x, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [1, 32])
+def test_masked_row_reading_inf_is_nan(cuda, feat):
+    nbrs, w, x, mask = _inputs(64, 4, 100, feat, torch.float32, cuda)
+    x[7] = float("inf")
+    nbrs[:8] = 7
+    nbrs[8:16] = 1000                  # out of range: clamps to row 99
+    x[99] = float("inf")
+    mask[:16] = False
+    got = port.ell_spmv(nbrs, w, x, mask)
+    want = port.ell_spmv_plain(nbrs, w, x, mask)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[:16]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_table_raises_above_its_bucket_limit(cuda):
+    nbrs, w, x, _ = _inputs(20, 2, 30, 1, torch.float32, cuda)
+    n = port.MAX_BUCKETS
+    port.ell_spmv_bucketed([nbrs] * n, [w] * n, x)
+    with pytest.raises(ValueError, match=f"at most {n} buckets"):
+        port.ell_spmv_bucketed([nbrs] * (n + 1), [w] * (n + 1), x)
+
+
+@pytest.mark.cuda
+def test_bucketed_calls_count_one_launch(cuda):
+    nbrs, w, x, mask = _inputs(300, 8, 400, 1, torch.float32, cuda)
+    cut = [0, 50, 50, 120, 300]                 # one empty bucket
+    blocks = [slice(a, b) for a, b in zip(cut, cut[1:])]
+    before = port.ell_spmv.launches
+    y = port.ell_spmv_bucketed([nbrs[s] for s in blocks],
+                               [w[s] for s in blocks], x,
+                               [mask[s] for s in blocks])
+    assert port.ell_spmv.launches == before + 1
+    vals = x[nbrs.long()]                               # [Nv, W, 1]
+    yf = port.ell_fold_bucketed([w[s] for s in blocks],
+                                [vals[s] for s in blocks],
+                                [mask[s] for s in blocks])
+    assert port.ell_spmv.launches == before + 2
+    assert torch.equal(y, port.ell_spmv_plain(nbrs, w, x, mask))
+    assert torch.equal(yf, y)
 
 
 @pytest.mark.cuda

@@ -170,3 +170,106 @@ def test_wrapper_rejects_other_devices_and_mixed_inputs():
 def test_cuda_argument_checks(args, msg):
     with pytest.raises(ValueError, match=msg):
         port._check_cuda_args(*args)
+
+
+PLAN_CASES = [                   # (bucket (rows, width) shapes, F, tile, threads)
+    (((1594285, 2), (221946, 4), (130973, 8), (72663, 16), (38170, 32),
+      (19453, 64), (9770, 128), (9892, 256)), 1, 4096, 256),
+    (((50, 2), (0, 4), (25, 4), (9, 9)), 1, 4096, 256),
+    (((7, 3), (3, 667), (2, 1024), (5, 5000), (4, 0), (9, 1)), 1, 4096, 256),
+    (((100, 8), (0, 16), (37, 62)), 32, 4096, 256),
+    (((13, 1), (9, 2), (7, 3), (3, 17), (1, 70)), 1, 16, 4),
+]
+
+
+@pytest.mark.parametrize("shapes,feat,tile,threads", PLAN_CASES)
+def test_plan_table_deals_every_row_once(shapes, feat, tile, threads):
+    entries, n_blocks = port.plan_table(shapes, feat, tile, threads)
+    # non-empty buckets only, widest first, ties in the caller's order
+    order = [b for b, _, _, _ in entries]
+    assert sorted(order) == [b for b, (nv, _) in enumerate(shapes) if nv]
+    assert order == sorted(order, key=lambda b: -shapes[b][1])
+    # output rows: the buckets one after another in the caller's order
+    for b, _, _, out_row in entries:
+        assert out_row == sum(nv for nv, _ in shapes[:b])
+    # block ranges: contiguous from 0, each covering its rows once
+    ends = [start for _, _, start, _ in entries[1:]] + [n_blocks]
+    assert entries[0][2] == 0
+    for (b, lg, start, _), end in zip(entries, ends):
+        nv, width = shapes[b]
+        group = 1 << lg
+        assert group >= min(width, tile) and (group == 1 or group < 2 * width)
+        assert group <= tile
+        per_block = tile // group if feat == 1 else threads
+        items = nv if feat == 1 else nv * feat
+        assert (end - start - 1) * per_block < items <= (end - start) * per_block
+    # a cached plan for the same shapes
+    assert port.plan_table(shapes, feat, tile, threads) is \
+        port.plan_table(shapes, feat, tile, threads)
+
+
+def test_build_table_points_at_each_bucket():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(40, 1)).astype(np.float32))
+    items = []
+    for nv, width, mask in ((6, 2, None), (0, 8, None), (4, 16, "bool"),
+                            (3, 3, "float")):
+        nbrs = torch.from_numpy(rng.integers(0, 40, (nv, width))
+                                .astype(np.int32))
+        w = torch.from_numpy(rng.random((nv, width)).astype(np.float32))
+        m = None if mask is None else torch.from_numpy(rng.random(nv) < 0.5)
+        if mask == "float":
+            m = m.double()
+        items.append((nbrs, w, x, m))
+    table, n_blocks, keep = port.build_table(items, 1)
+    entries, want_blocks = port.plan_table(
+        tuple(tuple(it[0].shape) for it in items), 1, port.TILE, port.THREADS)
+    assert table.n == len(entries) == 3 and n_blocks == want_blocks
+    for i, (b, lg, start, out_row) in enumerate(entries):
+        nbrs, w, _, m = items[b]
+        e = table.b[i]
+        assert (e.nbrs, e.w, e.x) == (nbrs.data_ptr(), w.data_ptr(),
+                                      x.data_ptr())
+        assert (e.n_src, e.n_rows, e.width) == (40, *nbrs.shape)
+        assert (e.lg_group, e.block_start, e.out_row) == (lg, start, out_row)
+        if m is None:
+            assert e.mask_kind == 0 and e.mask is None
+        elif m.dtype == torch.bool:              # read as bytes, no cast
+            assert e.mask_kind == 1 and e.mask == m.data_ptr()
+        else:                                    # cast once to w's dtype
+            assert e.mask_kind == 2
+            cast = [k for k in keep if k.data_ptr() == e.mask]
+            assert len(cast) == 1 and cast[0].dtype == torch.float32
+            assert torch.equal(cast[0], m.float())
+
+
+def test_table_checks_every_bucket():
+    nbrs = torch.zeros((2, 2), dtype=torch.int32)
+    w, x = torch.zeros((2, 2)), torch.zeros((3, 1))
+    good = (nbrs, w, x, None)
+    with pytest.raises(ValueError, match="match"):
+        port._check_table([good, (nbrs, torch.zeros((2, 3)), x, None)])
+    with pytest.raises(ValueError, match="row_mask"):
+        port._check_table([good, (nbrs, w, x, torch.ones(3, dtype=torch.bool))])
+    with pytest.raises(ValueError, match="feature count"):
+        port._check_table([good, (nbrs, w, torch.zeros((3, 2)), None)])
+    with pytest.raises(ValueError, match=f"at most {port.MAX_BUCKETS}"):
+        port._check_table([good] * (port.MAX_BUCKETS + 1))
+    assert port._check_table([good] * port.MAX_BUCKETS) == 1
+
+
+def test_fold_bucketed_matches_reference_folds():
+    rng = np.random.default_rng(11)
+    ws, vs, ms, want = [], [], [], []
+    for b, d in ((30, 2), (0, 4), (12, 16), (5, 62)):
+        w = (rng.random((b, d)) * (rng.random((b, d)) < 0.6)).astype(np.float32)
+        vals = rng.normal(size=(b, d, 1)).astype(np.float32)
+        mask = rng.random(b) < 0.7
+        ws.append(torch.from_numpy(w))
+        vs.append(torch.from_numpy(vals))
+        ms.append(torch.from_numpy(mask))
+        want.append(np.asarray(ref_kernel.ell_fold(
+            jnp.asarray(w), jnp.asarray(vals), jnp.asarray(mask),
+            interpret=True)) if b else np.zeros((0, 1), np.float32))
+    got = port.ell_fold_bucketed(ws, vs, ms).numpy()
+    np.testing.assert_array_equal(got, np.concatenate(want))
