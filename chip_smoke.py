@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. build       — compile every CUDA source of the port with nvcc, all at
-                 once; print each kernel's registers and spills (ptxas)
-                 and the window_attention bf16 body's shared memory and
-                 blocks an SM at phase 8's head widths;
+                 once; print each kernel's registers and spills (ptxas),
+                 the window_attention bf16 body's shared memory and
+                 blocks an SM at phase 8's head widths, and the
+                 als_normal_eq geometry (warps a row, rows a block, mask
+                 window) at phase 5's widths;
 2. kernels     — ``ell_spmv`` against its plain PyTorch version on the
                  card, at the PageRank path's full-size shapes: every
                  degree bucket of the 2,097,152-vertex Zipf graph at F=1
@@ -16,8 +18,10 @@ Phases (any failure exits non-zero and prints no result):
                  launch (``ell_spmv_bucketed``); shapes that stress the
                  mapping (an empty bucket, widths 3, 667, 1,024 and
                  5,000, an all-masked bucket, masked rows reading inf),
-                 each alone and all in one launch; one ``ell_fold``
-                 shape, F=32, bf16: float32 bitwise, bf16 within 2e-2;
+                 each alone and all in one launch; the sweep cut into
+                 20 buckets, more than one launch takes (two launches);
+                 one ``ell_fold`` shape, F=32, bf16: float32 bitwise,
+                 bf16 within 2e-2;
                  with CUDA-event times beside the plain version, one
                  library call (``torch.sparse.mm`` on the same matrix in
                  CSR: a bucket's, or the whole sweep's) and the least
@@ -31,11 +35,13 @@ Phases (any failure exits non-zero and prints no result):
                  and total-rank syncs checked against float64 on the host;
 5. als kernels — ``als_normal_eq`` against its plain version, float32
                  bitwise, at the ALS path's full-size shapes (the fold of
-                 each color phase, every degree bucket with x = w and
-                 ``als_normal_eq_bucketed`` over them all, and d = 5
-                 and d = 64 at the widest bucket's shape), timed
+                 each color phase, with its real slots and empty rows,
+                 every degree bucket with x = w, ``als_normal_eq_bucketed``
+                 over them all as one launch beside the per-bucket sum,
+                 and d = 5 and d = 64 at the widest bucket's shape), timed
                  beside the plain version, one library call
-                 (``torch.bmm``) and the bound;
+                 (``torch.bmm``) and the bound (d(d+1)/2 + d outputs a
+                 real slot, with the d(d+1) count beside it);
 6. als parity  — ALS on 2,000 users x 500 movies (d = 20) through
                  ``api.run`` on the GPU and on the CPU: the normal
                  equations bitwise, factors and sync RMSE within 1e-4 /
@@ -273,8 +279,8 @@ def phase_kernels(torch, ctx):
     """Kernel vs plain version at the main path's shapes: every bucket as
     a launch of its own, the whole sweep as one launch, shapes that
     stress the mapping, a fold, F = 32 and bf16."""
-    from repro_torch.kernels.ell_spmv import (ell_fold, ell_spmv,
-                                              ell_spmv_bucketed,
+    from repro_torch.kernels.ell_spmv import (MAX_BUCKETS, ell_fold,
+                                              ell_spmv, ell_spmv_bucketed,
                                               ell_spmv_plain)
     dev = ctx["dev"]
     graph = ctx["graph"]
@@ -367,7 +373,31 @@ def phase_kernels(torch, ctx):
                                library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                bucket_library_ms=tot["library_ms"],
                                bucket_ms=tot["ms"])
-    del csr, ys, plains
+
+    # more buckets than one launch takes: the sweep's 8 buckets cut into
+    # 20 row ranges, two launches, bitwise the plain version's
+    parts = [p for blk, k in zip(blocks, (3, 3, 3, 3, 2, 2, 2, 2))
+             for p in zip(*(t.tensor_split(k) for t in (blk[0], blk[1],
+                                                         blk[3])))]
+    parts = [tuple(t.contiguous() for t in p) for p in parts]
+    n_parts = sum(p[0].shape[0] > 0 for p in parts)
+    before = ell_spmv.launches
+    y20 = ell_spmv_bucketed([p[0] for p in parts], [p[1] for p in parts], x,
+                            [p[2] for p in parts])
+    launched = ell_spmv.launches - before
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, y20, torch.cat(plains))
+    want = -(-n_parts // MAX_BUCKETS)
+    ms20, _ = time_cuda(torch, lambda: ell_spmv_bucketed(
+        [p[0] for p in parts], [p[1] for p in parts], x,
+        [p[2] for p in parts]), 20, flush)
+    log(f"the sweep as {len(parts)} buckets ({n_parts} non-empty): "
+        f"{launched} launches (expected {want}), {ms20:.4f} ms, mismatches "
+        f"{mism}")
+    if mism or launched != want:
+        raise AssertionError(f"{len(parts)}-bucket sweep: {mism} f32 "
+                             f"elements differ, {launched} launches")
+    del csr, ys, plains, y20, parts
 
     # shapes that stress the mapping: each alone, then all in one launch
     n_src = 100_000
@@ -649,17 +679,20 @@ def report_run(torch, what, layers, run, prepare=lambda: None, **kw):
     return top
 
 
-def als_bound(nv, width, real, rows, d, fold=False):
-    """Least time for one als_normal_eq call: the larger of the bytes it
+def als_bound(nv, slots, real, rows, d, fold=False, full=False):
+    """Least time for one als_normal_eq call over ``nv`` rows of
+    ``slots`` slots in all: the larger of the bytes it
     must move (the mask byte of every slot, the rating and, unless the
-    call is a fold, whose identity index the wrapper makes, the index of
+    call is a fold, which reads its scope without an index, the index of
     every real slot, the ``rows`` distinct rows of x its real slots
     read, A and b written once) over the HBM rate and its flops (a
-    multiply and an add for each of the d(d+1) outputs of every real
-    slot) over the float32 rate."""
-    nbytes = (nv * width + real * (4 if fold else 8) + rows * d * 4
+    multiply and an add for each output the function needs from every
+    real slot: A is symmetric, so d(d+1)/2 of A and d of b; ``full``
+    counts all d(d+1), as if A were not symmetric) over the float32 rate."""
+    nbytes = (slots + real * (4 if fold else 8) + rows * d * 4
               + nv * d * (d + 1) * 4)
-    flops = real * 2 * d * (d + 1)
+    outputs = d * (d + 1) if full else d * (d + 1) // 2 + d
+    flops = real * 2 * outputs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -675,17 +708,18 @@ def color_scope(torch, graph, color):
     return gather_scopes(graph, graph.vertex_data, graph.edge_data, ids, {})
 
 
-def als_case(torch, label, nbrs, mask, r, x, flush, fold=False):
+def als_case(torch, label, nbrs, mask, r, x, flush):
     """``als_normal_eq`` at one shape against its plain version (float32
     bitwise), timed beside the plain version, the library call and the
-    bound.  With ``fold``, ``x`` is the gathered scope ``[B*D, d]`` and
-    the kernel runs through ``als_normal_eq_fold``, as the ALS update
-    calls it."""
+    bound.  With ``nbrs=None``, ``x`` is the gathered scope ``[B*D, d]``
+    and the kernel runs through ``als_normal_eq_fold``, as the ALS update
+    calls it, reading the scope without an index."""
     from repro_torch.kernels.als_normal_eq import (als_normal_eq,
                                                    als_normal_eq_fold,
                                                    als_normal_eq_plain)
     nv, width = mask.shape
     d = x.shape[1]
+    fold = nbrs is None
     if fold:
         X = x.view(nv, width, d)
         kern = lambda: als_normal_eq_fold(mask, r, X)
@@ -715,20 +749,29 @@ def als_case(torch, label, nbrs, mask, r, x, flush, fold=False):
     lib_ms, _ = time_cuda(torch, lib, 10, flush)
     del xm, rm, xt
     real = int(mask.sum())
-    rows = touched_rows(torch, nbrs, mask)
-    bms, by = als_bound(nv, width, real, rows, d, fold)
-    log(f"{label:<22} [{nv:>6}, {width:>4}] d={d:<3} real {real:>9}: "
-        f"{ms:9.4f} ms ({call_ms:.4f} with the host), plain "
-        f"{plain_ms:9.4f}, library {lib_ms:8.4f} (max |diff| "
-        f"{lib_err:.1e}), bound {bms:.4f} ({by}), mismatches {mism}")
-    return dict(label=label, nv=nv, width=width, d=d, real=real, ms=ms,
-                call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by, max_abs_err=err)
+    empty = int((~mask.any(dim=1)).sum())
+    # a fold reads each real slot's own row of the scope
+    rows = real if fold else touched_rows(torch, nbrs, mask)
+    bms, by = als_bound(nv, nv * width, real, rows, d, fold)
+    full_ms, full_by = als_bound(nv, nv * width, real, rows, d, fold,
+                                 full=True)
+    log(f"{label:<22} [{nv:>6}, {width:>4}] d={d:<3} real {real:>9}, empty "
+        f"rows {empty:>6}: {ms:9.4f} ms ({call_ms:.4f} with the host), "
+        f"plain {plain_ms:9.4f}, library {lib_ms:8.4f} (max |diff| "
+        f"{lib_err:.1e}), bound {bms:.4f} ({by}; kernel / bound "
+        f"{ms / bms:.2f}; counting d(d+1) outputs {full_ms:.4f}, "
+        f"{full_by}), mismatches {mism}")
+    return dict(label=label, nv=nv, width=width, d=d, real=real, empty=empty,
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, full_bound_ms=full_ms,
+                max_abs_err=err)
 
 
 def phase_als_kernels(torch, ctx):
     """als_normal_eq vs plain version at the ALS path's shapes."""
-    from repro_torch.kernels.als_normal_eq import (als_normal_eq_bucketed,
+    from repro_torch.kernels.als_normal_eq import (MAX_BUCKETS,
+                                                   als_normal_eq,
+                                                   als_normal_eq_bucketed,
                                                    als_normal_eq_plain)
     prob = ctx["als_problem"]
     graph, ell, d = prob.graph, prob.graph.ell, prob.d
@@ -742,30 +785,42 @@ def phase_als_kernels(torch, ctx):
         mask, r = scope.nbr_mask, scope.edge_data["rating"]
         del scope
         nv, width = mask.shape
-        idx = (torch.arange(nv, dtype=torch.int32, device=dev)[:, None]
-               * width + torch.arange(width, dtype=torch.int32, device=dev))
-        folds.append(als_case(torch, f"fold, color {c}", idx, mask, r,
-                              X.view(nv * width, d), flush, fold=True))
-        del X, mask, r, idx
+        folds.append(als_case(torch, f"fold, color {c}", None, mask, r,
+                              X.view(nv * width, d), flush))
+        del X, mask, r
     ratings = graph.edge_data["rating"]
     r_blocks = [ratings[e.long()].contiguous() for e in ell.edge_ids]
     w = graph.vertex_data["w"]
     buckets = [als_case(torch, f"bucket {b} (x = w)", ell.nbrs[b],
                         ell.nbr_mask[b], r_blocks[b], w, flush)
                for b in range(ell.n_buckets)]
-    # the bucketed entry point makes exactly those launches
+    # the bucketed entry point: every bucket in one launch
+    before = als_normal_eq.launches
     got = als_normal_eq_bucketed(ell.nbrs, ell.nbr_mask, r_blocks, w)
+    launched = als_normal_eq.launches - before
     plain = [als_normal_eq_plain(*blk, w)
              for blk in zip(ell.nbrs, ell.nbr_mask, r_blocks)]
     for g, p in zip(got, map(torch.cat, zip(*plain))):
         if not torch.equal(g, p):
             raise AssertionError("als_normal_eq_bucketed differs from the "
                                  "plain version")
-    log(f"als_normal_eq_bucketed over all {ell.n_buckets} buckets: "
-        f"A {tuple(got[0].shape)}, b {tuple(got[1].shape)}, bitwise equal "
-        f"to the plain version")
+    n_full = sum(nb.shape[0] > 0 for nb in ell.nbrs)
+    if launched != -(-n_full // MAX_BUCKETS):
+        raise AssertionError(f"als_normal_eq_bucketed made {launched} "
+                             f"launches for {n_full} buckets")
     del got, plain
-    log(f"one bucketed sweep (sum over buckets): kernel "
+    one_ms, one_call = time_cuda(torch, lambda: als_normal_eq_bucketed(
+        ell.nbrs, ell.nbr_mask, r_blocks, w), 10, flush)
+    nv_all = sum(nb.shape[0] for nb in ell.nbrs)
+    real = int(sum(int(m.sum()) for m in ell.nbr_mask))
+    rows = int(torch.unique(torch.cat(
+        [nb[m] for nb, m in zip(ell.nbrs, ell.nbr_mask)])).numel())
+    one_bound, one_by = als_bound(nv_all, ell.padded_slots, real, rows, d)
+    log(f"als_normal_eq_bucketed over all {ell.n_buckets} buckets "
+        f"({nv_all} rows, {real} real slots): {launched} launch, bitwise "
+        f"equal to the plain version; {one_ms:.4f} ms ({one_call:.4f} with "
+        f"the host), bound {one_bound:.4f} ({one_by})")
+    log(f"the same buckets one launch each (sums): kernel "
         f"{sum(c['ms'] for c in buckets):.4f} ms, plain "
         f"{sum(c['plain_ms'] for c in buckets):.4f} ms, library "
         f"{sum(c['library_ms'] for c in buckets):.4f} ms, bound "
@@ -1440,6 +1495,9 @@ def main() -> int:
                         or "Compiling entry" in line):
                     log(f"  {name}: {line.strip()}")
         log_attention_bodies(torch)
+        from repro_torch.kernels.als_normal_eq import geometry
+        log("  als_normal_eq (warps a row, rows a block, mask window): "
+            + ", ".join(f"d={d} {geometry(d)}" for d in (5, ALS_D, 64)))
     except Exception:
         traceback.print_exc()
         log("FAIL: phase 1 build")

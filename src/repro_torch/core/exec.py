@@ -11,7 +11,8 @@ The port of ``repro.core.exec`` for the bucket dispatch path:
   out-of-range row;
 * ``dispatch_update`` — scope materialization and update dispatch:
   dense scopes, or the aggregator fast path through the ``ell_spmv``
-  CUDA kernel, one launch over every degree bucket;
+  CUDA kernel, one launch over every degree bucket (one for each 16
+  non-empty buckets);
 * ``apply_batch`` / ``refresh_syncs`` — one conflict-free batch end to
   end, and the periodic sync refresh;
 * ``ExecutorCore`` — a host loop over supersteps that ends when the
@@ -158,7 +159,7 @@ def _owner_rows(ell, y_rows, ids, sel):
 
 def bucketed_dense_fold(ell, ids, sel, w, vals):
     """Reduce a dense batch scope through the kernel's fold of every
-    bucket (one launch), at exactly the kernel path's ``[Nv_b, W_b]``
+    bucket (one launch for each 16 non-empty buckets), at exactly the kernel path's ``[Nv_b, W_b]``
     shapes and with the same row gate, so both arms run one
     accumulation."""
     row_masks = ell.bucket_slices(ell.row_activation(ids, sel))

@@ -4,8 +4,10 @@ plain version.
     y[v, :] = row_mask[v] * sum_j  w[v, j] * x[nbrs[v, j], :]
 
 is the inner loop of every sweep-style update (PageRank, CoEM, the BSP
-baselines).  Every entry point is one launch of ``csrc/ell_spmv.cu`` over
-a table of buckets (``[Nv_b, W_b]`` blocks, at most ``MAX_BUCKETS``):
+baselines).  Every entry point goes through one table launch of
+``csrc/ell_spmv.cu`` (``[Nv_b, W_b]`` blocks, at most ``MAX_BUCKETS``
+non-empty ones a launch; a call with more is split into launches of
+consecutive buckets, each writing its own rows of the one output):
 ``ell_spmv_bucketed`` (a whole degree-bucket sweep) and
 ``ell_fold_bucketed`` (the dense arm's per-bucket folds) pass one entry a
 bucket, ``ell_spmv``, ``ell_spmv_batched`` (a ``[B, W]`` window) and
@@ -36,7 +38,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/ell_spmv.cu); checked against the built library when it loads
 TILE = 2048            # virtual slots a block gathers in one pass (F = 1)
 THREADS = 256
-MAX_BUCKETS = 16       # buckets one launch takes (PageRank has 8)
+MAX_BUCKETS = 16       # non-empty buckets one launch takes (PageRank has 8)
 _lib = None
 
 
@@ -128,6 +130,27 @@ def plan_table(shapes: tuple[tuple[int, int], ...], n_feat: int, tile: int,
     return tuple(entries), start
 
 
+@functools.lru_cache(maxsize=256)
+def split_table(shapes: tuple[tuple[int, ...], ...],
+                limit: int) -> tuple[tuple[int, int, int], ...]:
+    """The launches of one call over buckets of ``(rows, ...)`` ``shapes``:
+    runs ``(lo, hi, row0)`` of consecutive buckets ``lo:hi``, each holding
+    at most ``limit`` non-empty buckets, whose output rows start at
+    ``row0`` (the buckets' rows one after another in the caller's order).
+    Empty buckets ride in the run around them; a call with no non-empty
+    bucket makes no launch."""
+    runs, lo, row0, row, count = [], 0, 0, 0, 0
+    for b, (nv, *_) in enumerate(shapes):
+        if nv > 0 and count == limit:
+            runs.append((lo, b, row0))
+            lo, row0, count = b, row, 0
+        count += nv > 0
+        row += nv
+    if count:
+        runs.append((lo, len(shapes), row0))
+    return tuple(runs)
+
+
 def _check_cuda_args(nbrs, w, x, row_mask):
     if nbrs.dim() != 2 or nbrs.dtype != torch.int32:
         raise ValueError(f"nbrs must be a 2-D int32 tensor, got "
@@ -151,10 +174,7 @@ def _check_cuda_args(nbrs, w, x, row_mask):
 
 
 def _check_table(items):
-    """Checks every bucket of a launch; returns its feature count."""
-    if len(items) > MAX_BUCKETS:
-        raise ValueError(f"one launch takes at most {MAX_BUCKETS} buckets, "
-                         f"got {len(items)}")
+    """Checks every bucket of a call; returns its feature count."""
     for it in items:
         _check_cuda_args(*it)
     x0 = items[0][2]
@@ -174,6 +194,9 @@ def build_table(items, n_feat: int):
     is read as bytes 0/1; any other mask is cast to w's dtype once."""
     entries, n_blocks = plan_table(
         tuple(tuple(it[0].shape) for it in items), n_feat, TILE, THREADS)
+    if len(entries) > MAX_BUCKETS:
+        raise ValueError(f"one launch takes at most {MAX_BUCKETS} non-empty "
+                         f"buckets, got {len(entries)}")
     table, keep = _Table(), []
     table.n = len(entries)
     for i, (b, lg, start, out_row) in enumerate(entries):
@@ -192,8 +215,10 @@ def build_table(items, n_feat: int):
 
 
 def _spmv_table(items) -> torch.Tensor:
-    """``torch.cat([ell_spmv(*it) for it in items])`` as one launch on a
-    CUDA device (the plain version, bucket by bucket, on the CPU)."""
+    """``torch.cat([ell_spmv(*it) for it in items])`` on a CUDA device in
+    ``ceil(n / MAX_BUCKETS)`` launches for ``n`` non-empty buckets, each
+    writing its rows of the one output (the plain version, bucket by
+    bucket, on the CPU)."""
     tensors = [t for it in items for t in it if t is not None]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -210,17 +235,20 @@ def _spmv_table(items) -> torch.Tensor:
                     dtype=x0.dtype, device=device)
     if y.numel() == 0:
         return y
-    table, n_blocks, keep = build_table(items, n_feat)
     lib = _kernel_lib()
-    with torch.cuda.device(device):
-        err = lib.ell_spmv_launch(
-            ctypes.byref(table), n_blocks, y.data_ptr(), n_feat,
-            _DTYPE_CODE[x0.dtype], torch.cuda.current_stream(device).cuda_stream)
-    del keep
-    if err:
-        raise RuntimeError(f"ell_spmv launch failed: "
-                           f"{lib.ell_spmv_error_string(err).decode()}")
-    ell_spmv.launches += 1
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for lo, hi, row0 in split_table(
+            tuple(tuple(it[0].shape) for it in items), MAX_BUCKETS):
+        table, n_blocks, keep = build_table(items[lo:hi], n_feat)
+        with torch.cuda.device(device):
+            err = lib.ell_spmv_launch(
+                ctypes.byref(table), n_blocks, y[row0:].data_ptr(), n_feat,
+                _DTYPE_CODE[x0.dtype], stream)
+        del keep
+        if err:
+            raise RuntimeError(f"ell_spmv launch failed: "
+                               f"{lib.ell_spmv_error_string(err).decode()}")
+        ell_spmv.launches += 1
     return y
 
 
@@ -234,8 +262,9 @@ def ell_spmv(nbrs: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     row_mask: [Nv] bool/float or None — rows with a falsy mask yield 0
     returns y: [Nv, F] in x's dtype
 
-    ``ell_spmv.launches`` counts the CUDA kernel's launches, one for
-    each call of any entry point.
+    ``ell_spmv.launches`` counts the CUDA kernel's launches: one for each
+    call of any entry point, and one more for every ``MAX_BUCKETS``
+    non-empty buckets beyond the first.
     """
     return _spmv_table([(nbrs, w, x, row_mask)])
 
@@ -245,7 +274,8 @@ ell_spmv.launches = 0
 
 def ell_spmv_bucketed(nbrs_blocks, w_blocks, x: torch.Tensor,
                       row_masks=None) -> torch.Tensor:
-    """Sliced-ELL SpMV: every degree bucket in one launch.
+    """Sliced-ELL SpMV: every degree bucket in one launch (one for each
+    ``MAX_BUCKETS`` non-empty buckets).
 
     Returns ``y [sum_b Nv_b, F]`` in bucketed row order (the blocks'
     rows one after another); callers translate through the
@@ -273,7 +303,8 @@ def _identity_gather(b: int, d: int, device) -> torch.Tensor:
 
 
 def ell_fold_bucketed(w_blocks, v_blocks, row_masks=None) -> torch.Tensor:
-    """``ell_fold`` of every bucket in one launch: y[b] = sum_j w[b, j] *
+    """``ell_fold`` of every bucket in one launch (one for each
+    ``MAX_BUCKETS`` non-empty buckets): y[b] = sum_j w[b, j] *
     vals[b, j] for each ``(w [B_b, D_b], vals [B_b, D_b, F])``, rows of
     the buckets one after another."""
     items = []

@@ -37,6 +37,7 @@ from repro_torch.apps import BUILDERS, als, pagerank
 from repro_torch.core import coloring
 from repro_torch.kernels import als_normal_eq as port
 from repro_torch.kernels import ref as port_oracle
+from repro_torch.kernels.ell_spmv import split_table
 from torch_parity import reference_arrays
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -116,6 +117,123 @@ def test_bucketed_batched_and_fold_entries_match_reference():
     for g in (batched, fold):
         assert torch.equal(g[0], one[0]) and torch.equal(g[1], one[1])
     for g, w in zip(one, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.6, 1.0])
+@pytest.mark.parametrize("d", [1, 3, 20, 33, 64])
+def test_plain_version_is_bitwise_symmetric(d, density):
+    # x_i * x_k and x_k * x_i are one IEEE product, added in the same
+    # slot order: A == A^T bitwise, which lets the kernel compute the
+    # upper triangle only and mirror it
+    rng = np.random.default_rng(d)
+    nv, width, rows = 24, 13, 40
+    nbrs = rng.integers(-3, rows + 3, (nv, width)).astype(np.int32)
+    mask = rng.random((nv, width)) < density
+    r = rng.normal(size=(nv, width)).astype(np.float32)
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    a, b = port.als_normal_eq_plain(*_torch(nbrs, mask, r, x))
+    assert torch.equal(a, a.transpose(1, 2))
+    assert bool((a != 0).any()) == bool(mask.any())
+
+
+ALS_PLAN_CASES = [               # (bucket (rows, width) shapes, rows a block)
+    (((48019, 667),), 4),                        # a fold
+    (((50, 2), (0, 4), (25, 4), (9, 9)), 4),     # an empty bucket
+    (((7, 3), (3, 667), (2, 0), (5, 64), (4, 4)), 1),
+    (tuple((3 + b % 5, 1 + b % 6) for b in range(20)), 4),   # 20 buckets
+]
+
+
+@pytest.mark.parametrize("shapes,rows_per_block", ALS_PLAN_CASES)
+def test_als_plan_table_deals_every_row_once(shapes, rows_per_block):
+    for lo, hi, row0 in split_table(shapes, port.MAX_BUCKETS):
+        run = shapes[lo:hi]
+        entries, n_blocks = port.plan_table(run, rows_per_block)
+        # non-empty buckets only, widest first, ties in the caller's order
+        order = [b for b, _, _ in entries]
+        assert sorted(order) == [b for b, (nv, _) in enumerate(run) if nv]
+        assert order == sorted(order, key=lambda b: -run[b][1])
+        assert len(entries) <= port.MAX_BUCKETS
+        # output rows: the run's buckets one after another, from row0
+        for b, _, out_row in entries:
+            assert out_row == sum(nv for nv, _ in run[:b])
+            assert row0 + out_row == sum(nv for nv, _ in shapes[:lo + b])
+        # blocks: contiguous from 0, each bucket's rows covered once
+        ends = [start for _, start, _ in entries[1:]] + [n_blocks]
+        assert not entries or entries[0][1] == 0
+        for (b, start, _), end in zip(entries, ends):
+            nv = run[b][0]
+            assert (end - start - 1) * rows_per_block < nv
+            assert nv <= (end - start) * rows_per_block
+    assert port.plan_table(shapes[:3], 4) is port.plan_table(shapes[:3], 4)
+
+
+def test_build_table_points_at_each_als_bucket():
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(30, 5)).astype(np.float32))
+    items = []
+    for nv, width in ((6, 2), (0, 8), (4, 16), (3, 3)):
+        nbrs, mask, r, _ = _torch(*_inputs(nv, width, 30, 5))
+        items.append((nbrs, mask, r, x))
+    items.append((None, items[0][1], items[0][2], x[:12]))    # a fold
+    table, n_blocks = port.build_table(items, 2)
+    entries, want = port.plan_table(
+        tuple(tuple(it[1].shape) for it in items), 2)
+    assert table.n == len(entries) == 4 and n_blocks == want
+    for i, (bk, start, out_row) in enumerate(entries):
+        nbrs, mask, r, xs = items[bk]
+        e = table.b[i]
+        assert e.nbrs == (None if nbrs is None else nbrs.data_ptr())
+        assert (e.mask, e.ratings, e.x) == (mask.data_ptr(), r.data_ptr(),
+                                            xs.data_ptr())
+        assert (e.n_src, e.n_rows, e.width) == (xs.shape[0], *mask.shape)
+        assert (e.block_start, e.out_row) == (start, out_row)
+    with pytest.raises(ValueError, match=f"at most {port.MAX_BUCKETS}"):
+        port.build_table(items[:1] * (port.MAX_BUCKETS + 1), 2)
+
+
+def test_fold_identity_mode_is_the_gather_through_the_identity_index():
+    nbrs, mask, r, x = _torch(*_inputs(37, 11, 50, 6))
+    X = x[nbrs.long()]                                   # [B, D, d]
+    idx = torch.arange(37 * 11, dtype=torch.int32).reshape(37, 11)
+    want = port.als_normal_eq_plain(idx, mask, r, X.reshape(-1, 6))
+    for got in (port.als_normal_eq_plain(None, mask, r, X.reshape(-1, 6)),
+                port.als_normal_eq_fold(mask, r, X),
+                port.als_normal_eq(nbrs, mask, r, x)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="identity gather"):
+        port._check_args(None, mask, r, X.reshape(-1, 6)[:-1])
+    with pytest.raises(ValueError, match=r"\[B, D, d\]"):
+        port.als_normal_eq_fold(mask, r, x)
+
+
+def test_bucketed_over_more_buckets_than_a_launch_takes_matches_reference():
+    # 20 buckets (3 empty), more than one launch takes: the bucketed entry
+    # and the fold of each bucket's gathered scope against the
+    # reference's per-bucket launches in interpret mode (ids past the end
+    # clamp in both; jnp would wrap negative ones)
+    rng = np.random.default_rng(12)
+    rows, d = 90, 8
+    blocks = []
+    for b in range(20):
+        nv, width = (0 if b % 7 == 2 else (5, 9)[b % 2]), (3, 6)[b % 3 == 0]
+        blocks.append((rng.integers(0, rows + 2, (nv, width)).astype(np.int32),
+                       rng.random((nv, width)) < 0.7,
+                       rng.normal(size=(nv, width)).astype(np.float32)))
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    nb, mk, rt = zip(*blocks)
+    want = ref_kernel.als_normal_eq_bucketed(
+        _jax(*nb), _jax(*mk), _jax(*rt), jnp.asarray(x), interpret=True)
+    got = port.als_normal_eq_bucketed(_torch(*nb), _torch(*mk), _torch(*rt),
+                                      torch.from_numpy(x))
+    xt = torch.from_numpy(x)
+    folds = [port.als_normal_eq_fold(m, r, xt[n.long().clamp(0, rows - 1)])
+             for n, m, r in (_torch(*blk) for blk in blocks)]
+    fold = (torch.cat([f[0] for f in folds]), torch.cat([f[1] for f in folds]))
+    for g, f, w in zip(got, fold, want):
+        assert g.shape == w.shape and torch.equal(g, f)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
 

@@ -25,8 +25,9 @@ import torch
 
 from repro_torch import api
 from repro_torch.apps import als, pagerank
+from repro_torch.core.coloring import greedy_coloring
 from repro_torch.core.exec import build_color_batches
-from repro_torch.core.graph import zipf_edges
+from repro_torch.core.graph import DataGraph, zipf_edges
 from repro_torch.core.update import gather_scopes
 from repro_torch.kernels import als_normal_eq as als_port
 from repro_torch.kernels import ell_spmv as port
@@ -172,11 +173,28 @@ def test_masked_row_reading_inf_is_nan(cuda, feat):
 
 @pytest.mark.cuda
 def test_table_raises_above_its_bucket_limit(cuda):
-    nbrs, w, x, _ = _inputs(20, 2, 30, 1, torch.float32, cuda)
-    n = port.MAX_BUCKETS
-    port.ell_spmv_bucketed([nbrs] * n, [w] * n, x)
-    with pytest.raises(ValueError, match=f"at most {n} buckets"):
-        port.ell_spmv_bucketed([nbrs] * (n + 1), [w] * (n + 1), x)
+    # above its bucket limit the table no longer raises: a call of n
+    # non-empty buckets makes ceil(n / MAX_BUCKETS) launches, each writing
+    # its rows of the one output, bitwise the plain version's
+    nbrs, w, x, mask = _inputs(300, 8, 400, 1, torch.float32, cuda)
+    vals = x[nbrs.long()]                               # [Nv, W, 1]
+    for n in (16, 17, 20, 33):
+        cut = np.linspace(0, 300, n + 1).astype(int)
+        blocks = [slice(a, b) for a, b in zip(cut, cut[1:])]
+        blocks += [slice(0, 0)] * 3                     # empty ones ride along
+        want = torch.cat([port.ell_spmv_plain(nbrs[s], w[s], x, mask[s])
+                          for s in blocks])
+        before = port.ell_spmv.launches
+        got = port.ell_spmv_bucketed([nbrs[s] for s in blocks],
+                                     [w[s] for s in blocks], x,
+                                     [mask[s] for s in blocks])
+        fold = port.ell_fold_bucketed([w[s] for s in blocks],
+                                      [vals[s] for s in blocks],
+                                      [mask[s] for s in blocks])
+        torch.cuda.synchronize()
+        launches = -(-n // port.MAX_BUCKETS)
+        assert port.ell_spmv.launches == before + 2 * launches
+        assert torch.equal(got, want) and torch.equal(fold, want)
 
 
 @pytest.mark.cuda
@@ -212,6 +230,30 @@ def test_wrapper_raises_on_cuda_arguments_it_does_not_take(cuda):
 def test_gpu_pagerank_equals_cpu_pagerank_bitwise(cuda, use_kernel):
     edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
     g, upd, syncs = pagerank.build(edges, 2000, eps=1e-4, device="cpu")
+    cpu = api.run(g, upd, syncs=syncs, device="cpu")
+    before = port.ell_spmv.launches
+    gpu = api.run(g, upd, syncs=syncs, device=cuda, use_kernel=use_kernel)
+    assert port.ell_spmv.launches > before
+    assert torch.equal(gpu.vertex_data["rank"].cpu(), cpu.vertex_data["rank"])
+    assert (gpu.superstep, gpu.n_updates) == (cpu.superstep, cpu.n_updates)
+    assert gpu.globals["total_rank"].item() == cpu.globals["total_rank"].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_gpu_pagerank_over_20_buckets_equals_cpu_pagerank(cuda, use_kernel):
+    # more buckets than one launch takes: every sweep and fold is two
+    # launches on the card, and the run stays bitwise the CPU's
+    n = 2000
+    edges = zipf_edges(n, alpha=2.0, max_deg=20, seed=1)
+    g = DataGraph.from_edges(
+        n, edges, vertex_data={"rank": np.ones(n, np.float32)},
+        edge_data={"w": pagerank.edge_weights(edges, n)},
+        edge_locality=False, bucket_widths=range(1, 21), device="cpu")
+    g = g.with_colors(greedy_coloring(n, edges))
+    assert g.ell.n_buckets == 20
+    upd = pagerank.make_update(1e-4)
+    syncs = (pagerank.second_most_popular_sync(), pagerank.total_rank_sync())
     cpu = api.run(g, upd, syncs=syncs, device="cpu")
     before = port.ell_spmv.launches
     gpu = api.run(g, upd, syncs=syncs, device=cuda, use_kernel=use_kernel)
@@ -263,6 +305,91 @@ def test_als_kernel_matches_plain_version_on_card(cuda, nv, deg, rows, d,
         assert torch.equal(g.cpu(), c)
 
 
+def _als_stress(d, width, density, device, rows=300, nv=97):
+    """ALS slots at one (d, width): out-of-range ids on real slots, two
+    all-masked rows, and an inf row of x read only through masked slots."""
+    rng = np.random.default_rng(d * 1000 + width * 3 + int(10 * density))
+    nbrs = rng.integers(-4, rows + 4, (nv, width)).astype(np.int32)
+    mask = rng.random((nv, width)) < density
+    mask[[3, 50]] = False
+    nbrs[nbrs == 7] = 8
+    nbrs[~mask & (rng.random((nv, width)) < 0.5)] = 7
+    r = rng.normal(size=(nv, width)).astype(np.float32)
+    x = rng.normal(size=(rows, d)).astype(np.float32)
+    x[7] = np.inf
+    return tuple(torch.from_numpy(t).to(device) for t in (nbrs, mask, r, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.6, 1.0])
+@pytest.mark.parametrize("width", [0, 1, 5, 31, 64, 70, 667])
+@pytest.mark.parametrize("d", [1, 3, 7, 17, 20, 33, 63, 64])
+def test_als_kernel_bitwise_at_every_d_and_width(cuda, d, width, density):
+    nbrs, mask, r, x = _als_stress(d, width, density, cuda)
+    want = als_port.als_normal_eq_plain(nbrs, mask, r, x)
+    got = als_port.als_normal_eq(nbrs, mask, r, x)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], got[0].transpose(1, 2))
+    assert not got[0][[3, 50]].any() and not got[1][[3, 50]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 20, 64])
+def test_als_kernel_reads_an_unaligned_x(cuda, d):
+    # rows of x off a 16-byte boundary are copied 4 bytes at a time
+    nbrs, mask, r, x = _als_stress(d, 70, 0.6, cuda)
+    x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(-1, d)
+    assert x.data_ptr() % 16 != 0
+    want = als_port.als_normal_eq_plain(nbrs, mask, r, x)
+    got = als_port.als_normal_eq(nbrs, mask, r, x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 20, 64])
+def test_als_fold_identity_mode_on_card(cuda, d):
+    nbrs, mask, r, x = _als_stress(d, 70, 0.6, cuda)
+    finite = torch.where(torch.isinf(x), 0.0, x)
+    X = finite[nbrs.long().clamp(0, x.shape[0] - 1)]              # [B, D, d]
+    X[~mask] = torch.inf                    # read only behind masks
+    want = als_port.als_normal_eq_plain(None, mask, r, X.view(-1, d))
+    before = als_port.als_normal_eq.launches
+    got = als_port.als_normal_eq_fold(mask, r, X)
+    torch.cuda.synchronize()
+    assert als_port.als_normal_eq.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the fold reads the scope in place: a strided scope raises
+    with pytest.raises(ValueError, match="contiguous"):
+        als_port.als_normal_eq_fold(mask, r, X.transpose(0, 1).contiguous()
+                                    .transpose(0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 16, 17, 20, 33])
+def test_als_bucketed_launches_once_per_16_buckets(cuda, n):
+    nbrs, mask, r, x = _als_inputs(400, 12, 500, 20, 0.7, cuda)
+    rng = np.random.default_rng(n)
+    cut = np.sort(rng.choice(np.arange(1, 400), n - 1, replace=False))
+    spans = [slice(a, b) for a, b in zip([0, *cut], [*cut, 400])]
+    blocks = []
+    for i, sp in enumerate(spans):         # widths 1..12, an empty bucket
+        wd = 1 + i % 12
+        blocks.append((nbrs[sp, :wd].contiguous(), mask[sp, :wd].contiguous(),
+                       r[sp, :wd].contiguous()))
+        if i == 1:
+            blocks.append((nbrs[:0, :4], mask[:0, :4], r[:0, :4]))
+    want = [als_port.als_normal_eq_plain(*blk, x) for blk in blocks]
+    before = als_port.als_normal_eq.launches
+    a, b = als_port.als_normal_eq_bucketed(*zip(*blocks), x)
+    torch.cuda.synchronize()
+    assert als_port.als_normal_eq.launches == before + -(-n // 16)
+    assert torch.equal(a, torch.cat([w[0] for w in want]))
+    assert torch.equal(b, torch.cat([w[1] for w in want]))
+
+
 @pytest.mark.cuda
 def test_als_entry_points_share_the_launch(cuda):
     nbrs, mask, r, x = _als_inputs(300, 12, 400, 20, 0.7, cuda)
@@ -275,7 +402,8 @@ def test_als_entry_points_share_the_launch(cuda):
     fold = als_port.als_normal_eq_fold(mask, r, x[nbrs.long()])
     for got in (split, batched, fold):
         assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
-    assert als_port.als_normal_eq.launches == before + 5
+    # one launch each: the bucketed call's two buckets share one
+    assert als_port.als_normal_eq.launches == before + 4
 
 
 @pytest.mark.cuda

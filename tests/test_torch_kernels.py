@@ -253,9 +253,66 @@ def test_table_checks_every_bucket():
         port._check_table([good, (nbrs, w, x, torch.ones(3, dtype=torch.bool))])
     with pytest.raises(ValueError, match="feature count"):
         port._check_table([good, (nbrs, w, torch.zeros((3, 2)), None)])
+    # a call takes any number of buckets; one launch's table at most
+    # MAX_BUCKETS non-empty ones (empty ones take no entry)
+    assert port._check_table([good] * (port.MAX_BUCKETS + 1)) == 1
+    empty = (nbrs[:0], w[:0], x, None)
+    table, _, _ = port.build_table([good] * port.MAX_BUCKETS + [empty] * 3, 1)
+    assert table.n == port.MAX_BUCKETS
     with pytest.raises(ValueError, match=f"at most {port.MAX_BUCKETS}"):
-        port._check_table([good] * (port.MAX_BUCKETS + 1))
-    assert port._check_table([good] * port.MAX_BUCKETS) == 1
+        port.build_table([good] * (port.MAX_BUCKETS + 1), 1)
+
+
+SPLIT_CASES = [                  # (bucket row counts, limit)
+    ((5, 3, 0, 7), 16),                          # one launch
+    ((0, 0), 16),                                # no launch
+    (tuple(range(1, 21)), 16),                   # 20 buckets: 16 + 4
+    ((4,) * 17, 16),                             # 17: 16 + 1
+    ((2, 0) * 17 + (0,), 16),                    # empty ones ride along
+    (tuple(range(33)), 16),                      # 32 non-empty: 16 + 16
+    ((1, 0, 1, 1, 0, 0, 1, 1), 2),
+]
+
+
+@pytest.mark.parametrize("rows,limit", SPLIT_CASES)
+def test_split_table_launches_at_most_limit_buckets(rows, limit):
+    shapes = tuple((nv, 3) for nv in rows)
+    runs = port.split_table(shapes, limit)
+    n_full = sum(nv > 0 for nv in rows)
+    assert len(runs) == -(-n_full // limit)
+    # consecutive buckets in the caller's order, every non-empty one once
+    covered = [b for lo, hi, _ in runs for b in range(lo, hi)]
+    assert covered == sorted(covered) and len(set(covered)) == len(covered)
+    assert {b for b, nv in enumerate(rows) if nv} <= set(covered)
+    for lo, hi, row0 in runs:
+        assert 0 < sum(nv > 0 for nv in rows[lo:hi]) <= limit
+        assert row0 == sum(rows[:lo])          # the run's rows of the output
+    assert port.split_table(shapes, limit) is port.split_table(shapes, limit)
+
+
+def test_bucketed_call_over_more_buckets_than_a_launch_takes():
+    # on the CPU the plain version runs bucket by bucket: 20 buckets, some
+    # empty, equal the reference's per-bucket launches bucket for bucket
+    rng = np.random.default_rng(8)
+    rows = 60
+    x = rng.normal(size=(rows, 1)).astype(np.float32)
+    nbrs, ws, masks, want = [], [], [], []
+    for b in range(20):
+        nv, width = (0 if b % 7 == 3 else 4 + b % 3), 1 + b % 4
+        nb = rng.integers(0, rows, (nv, width)).astype(np.int32)
+        w = (rng.random((nv, width)) * (rng.random((nv, width)) < 0.7)
+             ).astype(np.float32)
+        m = rng.random(nv) < 0.8
+        nbrs.append(nb)
+        ws.append(w)
+        masks.append(m)
+    want = ref_kernel.ell_spmv_bucketed(
+        [jnp.asarray(a) for a in nbrs], [jnp.asarray(a) for a in ws],
+        jnp.asarray(x), [jnp.asarray(a) for a in masks], interpret=True)
+    got = port.ell_spmv_bucketed(
+        [torch.from_numpy(a) for a in nbrs], [torch.from_numpy(a) for a in ws],
+        torch.from_numpy(x), [torch.from_numpy(a) for a in masks])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_fold_bucketed_matches_reference_folds():
