@@ -84,7 +84,45 @@ Phases (any failure exits non-zero and prints no result):
                  request the whole of layers 0 and 35 (the inserted K/V
                  rows and the layer's output) and the logits against a
                  float64 numpy decode on the host; the logits finite;
-11. report     — a ``{"kernels": [...]}`` line, then the contract line
+11. schedulers kernels — ``ell_spmv`` at the window engines' launch
+                 shapes against its plain version, float32 bitwise: the
+                 ``[32768, W]`` window (``ell_spmv_batched``) of every
+                 scope width of the Zipf graph at F = 1 and of the CoEM
+                 graph at F = 32, and the CoEM sweep as one launch
+                 (F = 32), timed beside the plain version, one
+                 ``torch.sparse.mm`` and the bound; the two row gathers
+                 of ``SlicedEll`` (flat, per bucket) at window and sweep
+                 batches of both graphs, equal and timed;
+12. schedulers parity — the 2k Zipf graph under chromatic, BSP,
+                 priority (k = 64, and FIFO) and locking (64 pending):
+                 CC (and locking under FULL) GPU == CPU bitwise and equal
+                 to union-find; PageRank GPU == CPU bitwise under
+                 {bucket, batch} x {kernel, dense} for 10 supersteps;
+                 CoEM on a
+                 2,000-phrase corpus (F = 32): kernel == dense arm and
+                 bucket == batch shape bitwise on the GPU, within 1e-6 of
+                 the CPU, for 10 supersteps;
+13. schedulers main — full size, the ell_spmv count set to 0 just before
+                 each run and read just after: CC on the 2,097,152-vertex
+                 Zipf graph under chromatic, BSP, priority (k = 32,768)
+                 and locking (32,768 pending), each drained and equal to
+                 union-find on the host; CoEM on a 2,000,000-phrase x
+                 500,000-context, 32-type corpus: chromatic to
+                 convergence at eps = 1e-3, priority and locking (window
+                 32,768) for 120 supersteps, the last superstep's rows and
+                 the entropy sync against float64, accuracy above the
+                 seeds' alone, the dense arm bitwise the kernel arm at the
+                 window's size (a comparison: its launches are not
+                 counted); CoSeg LBP on 16 x 240 x 320 super-pixels,
+                 K = 4: locking (32,768 pending, 20 supersteps) from
+                 priority 1 everywhere and from priorities drawn from
+                 the seed, and chromatic (4 sweeps), the updates of each
+                 superstep, the last superstep's unary terms, messages
+                 and beliefs against float64, accuracy no worse than the
+                 unary terms', the GMM sync against float64; each run's
+                 supersteps, updates, ms per superstep, peak memory and
+                 one fresh superstep's layers and idle share;
+14. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -95,6 +133,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
@@ -148,6 +187,37 @@ DECODE_F32_TOL = 1e-4
 # float32 rope angles at positions up to 2^19 carry the powf rounding of
 # the frequencies; a few of those 4e-3 roundings add up well under 2e-2
 LAYER_HOST_TOL = 2e-2
+# phases 11-13: the window of the priority and locking engines, chosen so
+# that dispatch="auto" resolves to the window launch on the Zipf graph
+# (32,768 x 256 = 8.4M slots < its 12.5M sliced slots)
+WINDOW = 32_768
+# CoEM: the paper's NER shape (§5.3) cut to a smoke run's time
+NER_PHRASES, NER_CONTEXTS, NER_TYPES = 2_000_000, 500_000, 32
+COEM_EPS = 1e-3
+COEM_SWEEPS = 100              # chromatic's limit; it must converge first
+# priority / locking: a fixed budget; a window of 32,768 needs 77
+# supersteps to reach every vertex once (phrases first: lower ids)
+COEM_WINDOW_STEPS = 120
+COEM_DENSE_STEPS = 3           # the dense arm at the window's size
+CHECKED_ROWS = 16_384          # of each phase of the last superstep
+# a row of the last superstep against float64: a float32 mix of ~6-50
+# products and two divisions, values in [0, 1]
+COEM_HOST_TOL = 1e-5
+# CoSeg LBP (paper §5.2): 16 frames of 240 x 320 super-pixels
+COSEG_SHAPE = (16, 240, 320)
+COSEG_LABELS, COSEG_FEAT, COSEG_NOISE = 4, 3, 0.55
+COSEG_BETA, COSEG_GAMMA, COSEG_EPS = 0.6, 2.0, 5e-3
+COSEG_LOCKING_STEPS, COSEG_SWEEPS = 20, 4
+# the GMM sync (float32 halving-tree sums of 1.2M soft counts) against
+# float64 on the host
+GMM_HOST_TOL = 1e-4
+# a row of the last superstep against float64, relative to the size of
+# the inputs each value was computed from (at least 1): unary terms and
+# beliefs reach ~150, where a float32 ulp is 1.5e-5, and a message is a
+# difference of logsumexps of cavities of that size
+LBP_HOST_TOL = 1e-5
+PARITY_STEPS = 10              # phase 12's PageRank and CoEM budget
+CC_MAX_SUPERSTEPS = 4000       # CC runs until drained, within this
 
 
 def cuda_device(torch):
@@ -529,16 +599,23 @@ def layer_breakdown(torch, layers, run, prepare=lambda: None,
     """Seconds per layer of one ``run(prepare())``, each layer (an
     ``(owner, attribute, label)`` triple) bracketed by synchronizes (so
     layers do not overlap; the sum is a little more than an unbracketed
-    run).  ``prepare`` runs outside the timing."""
-    acc = {}
+    run).  A layer called inside another is counted in the outer one;
+    layers may share a label.  ``prepare`` runs outside the timing."""
+    acc, depth = {}, [0]
 
     def timed(label, fn):
         def inner(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+            if depth[0]:           # inside another layer: counted there
+                return fn(*a, **k)
+            depth[0] += 1
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                acc[label] = acc.get(label, 0.0) + time.perf_counter() - t0
+            finally:
+                depth[0] -= 1
             return out
         return inner
 
@@ -645,12 +722,12 @@ def phase_main(torch, ctx):
             f"{sum(c for _, c in spmv)} launches")
 
 
-def report_superstep(torch, engine, layers):
-    """Log one fresh superstep's layer breakdown and, under
-    torch.profiler, the device's idle share; return the profile's
-    kernels (``report_run``)."""
+def report_superstep(torch, engine, layers, priority=None):
+    """Log one fresh superstep's layer breakdown (from the task set
+    seeded at ``priority``) and, under torch.profiler, the device's idle
+    share; return the profile's kernels (``report_run``)."""
     return report_run(torch, "superstep", layers, engine._superstep,
-                      engine.init_state)
+                      lambda: engine.init_state(priority=priority))
 
 
 def report_run(torch, what, layers, run, prepare=lambda: None, **kw):
@@ -1460,7 +1537,625 @@ def phase_serve_main(torch, ctx):
     ctx.setdefault("launches", {})["window_attention"] = launches
 
 
+# ----------------------------------------------------------------------
+# Phases 11-13: the schedulers slice
+# ----------------------------------------------------------------------
+
+def synthetic_ner_bulk(np, n_phrases, n_contexts, n_types, mean_deg=6,
+                       p_same=0.85, seed_frac=0.05, seed=0):
+    """The planted-type model of ``coem.synthetic_ner`` drawn in bulk with
+    numpy (the copy there loops in Python per phrase): Poisson(6)
+    contexts a phrase (at least 1), each a uniform context of the
+    phrase's type with probability 0.85, else a uniform one; counts
+    uniform in 1..4; pairs deduplicated; 5 % of phrases seeds.  Returns
+    ``(pairs, counts, phrase_types, context_types, seeds)``."""
+    rng = np.random.default_rng(seed)
+    pt = rng.integers(0, n_types, n_phrases)
+    ct = rng.integers(0, n_types, n_contexts)
+    k = np.maximum(1, rng.poisson(mean_deg, n_phrases))
+    phrase = np.repeat(np.arange(n_phrases, dtype=np.int64), k)
+    by_type = np.argsort(ct, kind="stable")
+    per_type = np.bincount(ct, minlength=n_types)
+    first = np.concatenate([[0], np.cumsum(per_type)[:-1]])
+    t = pt[phrase]
+    same = (rng.random(len(phrase)) < p_same) & (per_type[t] > 0)
+    pick = first[t] + (rng.random(len(phrase)) * per_type[t]).astype(np.int64)
+    context = np.where(same, by_type[np.minimum(pick, n_contexts - 1)],
+                       rng.integers(0, n_contexts, len(phrase)))
+    counts = rng.integers(1, 5, len(phrase)).astype(np.float32)
+    _, keep = np.unique(phrase * n_contexts + context, return_index=True)
+    pairs = np.stack([phrase[keep], context[keep]], axis=1)
+    seeds = rng.choice(n_phrases, size=max(n_types, int(seed_frac
+                                                         * n_phrases)),
+                       replace=False)
+    return pairs, counts[keep], pt, ct, seeds
+
+
+def setup_schedulers(torch, ctx):
+    """Phases 11-13's full-size problems, built on the host: CC on phase
+    4's Zipf edges (with phase 4's colors), the bulk NER corpus, and
+    CoSeg from ``lbp.synthetic_coseg``."""
+    import numpy as np
+
+    from repro_torch.apps import cc, coem, lbp
+    release(torch, ctx)
+    dev = ctx["dev"]
+    t0 = time.perf_counter()
+    g, _, _ = cc.build(ctx["zipf_edges"], FULL_N, colors=ctx["zipf_colors"],
+                       device=dev)
+    t1 = time.perf_counter()
+    pairs, counts, pt, ct, seeds = synthetic_ner_bulk(
+        np, NER_PHRASES, NER_CONTEXTS, NER_TYPES, seed=0)
+    ner = coem.problem_from_pairs(pairs, counts, pt, ct, NER_TYPES, seeds,
+                                  device=dev)
+    t2 = time.perf_counter()
+    coseg = lbp.synthetic_coseg(*COSEG_SHAPE, n_labels=COSEG_LABELS,
+                                n_feat=COSEG_FEAT, noise=COSEG_NOISE, seed=0,
+                                device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    cg = ner.graph
+    log(f"CC graph: {g.n_vertices} vertices, {g.n_edges} edges, "
+        f"{g.n_colors} colors (phase 4's), widths {g.ell.widths}, "
+        f"{g.ell.padded_slots} sliced slots; host set-up {t1 - t0:.1f} s")
+    log(f"CoEM corpus: {NER_PHRASES} phrases x {NER_CONTEXTS} contexts, "
+        f"{NER_TYPES} types, {cg.n_edges} edges, {len(seeds)} seeds, max "
+        f"degree {cg.max_deg}, buckets {cg.ell.bucket_launches}; host "
+        f"set-up {t2 - t1:.1f} s")
+    log(f"CoSeg: {COSEG_SHAPE} super-pixels = {coseg.graph.n_vertices}, "
+        f"{coseg.graph.n_edges} edges, {coseg.graph.n_colors} colors, K = "
+        f"{COSEG_LABELS}; host set-up {t3 - t2:.1f} s")
+    ctx.update(cc_graph=g, ner=ner, coseg=coseg)
+
+
+def window_case(torch, label, ell, width, w_edge, x, gen, flush):
+    """``ell_spmv_batched`` on a ``[WINDOW, W]`` window gathered at scope
+    width ``W`` from rows drawn uniformly among the buckets up to W (as a
+    priority window snapped to W holds them), against its plain version
+    (bitwise), one ``torch.sparse.mm`` on its CSR and its bound."""
+    from repro_torch.kernels.ell_spmv import ell_spmv_batched, ell_spmv_plain
+    dev = x.device
+    b = ell.widths.index(width)
+    pool = ell.perm[:ell.starts[b + 1]]      # bucketed positions 0..end
+    pick = torch.randperm(pool.numel(), generator=gen, device=dev)[:WINDOW]
+    if not bool((pick >= ell.starts[b]).any()):
+        pick[0] = ell.starts[b]            # a row of width W's own bucket
+    ids = pool[pick]
+    every = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
+    if ell.window_bucket(ids, every) != b:
+        raise AssertionError(f"{label}: the window does not need width "
+                             f"{width}")
+    r = ell.rows(ids, width=width)
+    w = torch.where(r.nbr_mask, w_edge[r.edge_ids.long()], 0.0).contiguous()
+    mask = torch.rand(ids.numel(), generator=gen, device=dev) < 0.8
+    args = (r.nbrs, w, x, mask)
+    y = ell_spmv_batched(*args)
+    yp = ell_spmv_plain(*args)
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, y, yp)
+    err = float((y - yp).abs().max())
+    if mism:
+        raise AssertionError(f"{label}: {mism} f32 elements differ from "
+                             f"the plain version (max {err})")
+    csr = csr_of(torch, [(r.nbrs, w, r.nbr_mask, mask)], x.shape[0])
+    lib_err = float((torch.sparse.mm(csr, x) - y).abs().max())
+    ms, call_ms = time_cuda(torch, lambda: ell_spmv_batched(*args), 20, flush)
+    plain_ms, _ = time_cuda(torch, lambda: ell_spmv_plain(*args), 3, flush)
+    lib_ms, _ = time_cuda(torch, lambda: torch.sparse.mm(csr, x), 20, flush)
+    nb, feat = ids.numel(), x.shape[1]
+    real = int(r.nbr_mask.sum())
+    bms, by = bound_ms(nb, nb * width, touched_rows(torch, r.nbrs,
+                                                    r.nbr_mask), feat, 4, nb)
+    log(f"{label} [{nb}, {width}] ({real} real slots): kernel {ms:.4f} ms "
+        f"({call_ms:.4f} with the host), plain {plain_ms:.4f}, library "
+        f"{lib_ms:.4f} (max |diff| {lib_err:.2e}), bound {bms:.4f} ({by}; "
+        f"kernel / bound {ms / bms:.2f}), mismatches 0")
+    return dict(label=label, rows=nb, width=width, feat=feat,
+                real_slots=real, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
+def phase_sched_kernels(torch, ctx):
+    """B1 at this slice's launch shapes: the ``[WINDOW, W]`` window of
+    every scope width of the Zipf graph at F = 1 and of the CoEM graph at
+    F = 32, and the CoEM sweep as one launch (F = 32)."""
+    import numpy as np
+
+    from repro_torch.apps import pagerank
+    from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_bucketed,
+                                              ell_spmv_plain)
+    dev = ctx["dev"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    cases = []
+    g = ctx["cc_graph"]
+    # PageRank's weights in the CC graph's stored edge order, pad row 0
+    w_edge = torch.from_numpy(np.append(pagerank.edge_weights(
+        g.edges_np, g.n_vertices), np.float32(0))).to(dev)
+    x1 = torch.rand((g.n_vertices, 1), generator=gen, device=dev) + 0.5
+    for width in g.ell.scope_widths:
+        cases.append(window_case(torch, f"Zipf window F=1 W={width}", g.ell,
+                                 width, w_edge, x1, gen, flush))
+    cg = ctx["ner"].graph
+    count = cg.edge_data["count"]
+    x32 = torch.rand((cg.n_vertices, NER_TYPES), generator=gen, device=dev)
+    for width in cg.ell.scope_widths:
+        cases.append(window_case(torch, f"CoEM window F={NER_TYPES} "
+                                 f"W={width}", cg.ell, width, count, x32, gen,
+                                 flush))
+    ell = cg.ell
+    w_blocks = [torch.where(ell.nbr_mask[b], count[ell.edge_ids[b].long()],
+                            0.0).contiguous() for b in range(ell.n_buckets)]
+    masks = [torch.rand(nb.shape[0], generator=gen, device=dev) < 0.8
+             for nb in ell.nbrs]
+    before = ell_spmv.launches
+    y = ell_spmv_bucketed(ell.nbrs, w_blocks, x32, masks)
+    launched = ell_spmv.launches - before
+    yp = torch.cat([ell_spmv_plain(nb, w, x32, m)
+                    for nb, w, m in zip(ell.nbrs, w_blocks, masks)])
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, y, yp)
+    err = float((y - yp).abs().max())
+    if mism or launched != 1:
+        raise AssertionError(f"CoEM sweep: {mism} f32 elements differ, "
+                             f"{launched} launches")
+    blocks = list(zip(ell.nbrs, w_blocks, ell.nbr_mask, masks))
+    csr = csr_of(torch, blocks, cg.n_vertices)
+    lib_err = float((torch.sparse.mm(csr, x32) - y).abs().max())
+    ms, call_ms = time_cuda(
+        torch, lambda: ell_spmv_bucketed(ell.nbrs, w_blocks, x32, masks), 20,
+        flush)
+    plain_ms, _ = time_cuda(torch, lambda: [
+        ell_spmv_plain(nb, w, x32, m)
+        for nb, w, m in zip(ell.nbrs, w_blocks, masks)], 2, flush)
+    lib_ms, _ = time_cuda(torch, lambda: torch.sparse.mm(csr, x32), 20, flush)
+    touched = int(torch.unique(torch.cat(
+        [nb[m] for nb, m in zip(ell.nbrs, ell.nbr_mask)])).numel())
+    bms, by = bound_ms(ell.total_rows, ell.padded_slots, touched, NER_TYPES,
+                       4, ell.total_rows)
+    log(f"CoEM sweep F={NER_TYPES}, one launch [{ell.total_rows} rows, "
+        f"{ell.padded_slots} slots, {touched} rows of x]: kernel {ms:.4f} ms "
+        f"({call_ms:.4f} with the host), plain {plain_ms:.4f}, library "
+        f"{lib_ms:.4f} (max |diff| {lib_err:.2e}), bound {bms:.4f} ({by}; "
+        f"kernel / bound {ms / bms:.2f}), mismatches 0, launches 1")
+    cases.append(dict(label="CoEM sweep", rows=ell.total_rows, width=None,
+                      feat=NER_TYPES, ms=ms, call_ms=call_ms,
+                      plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                      bound_by=by, max_abs_err=err))
+    ctx["sched_kernel_cases"] = cases
+    largest = int(torch.bincount(g.colors).max())
+    for label, ell, sizes in (
+            ("Zipf", g.ell, (WINDOW, 8 * WINDOW, largest, g.n_vertices)),
+            ("CoEM", cg.ell, (WINDOW, 8 * WINDOW, NER_PHRASES))):
+        for b_rows in sizes:
+            gather_case(torch, label, ell, b_rows, gen)
+
+
+def gather_case(torch, label, ell, b_rows, gen):
+    """Both row gathers of ``SlicedEll`` on ``b_rows`` distinct random
+    rows at ``max_deg``: the same rows, and each one's host wall time
+    with the card synchronized around it (the per-bucket gather's syncs
+    are part of its cost), the median of 5 after a warm-up.  These
+    readings place ``graph.FLAT_GATHER_SLOTS``."""
+    from repro_torch.core import graph
+    ids = torch.randperm(ell.n_rows, generator=gen,
+                         device=ell.device)[:b_rows]
+    pos, d = ell.inv_perm[ids], ell.max_deg
+    rows, ms = {}, {}
+    for name, fn in (("flat", ell._flat_rows), ("bucket", ell._bucket_rows)):
+        rows[name] = fn(pos, d)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(pos, d)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = sorted(times)[2]
+    same = all(torch.equal(a, b) for a, b in zip(rows["flat"],
+                                                 rows["bucket"]))
+    pick = "flat" if b_rows * d <= graph.FLAT_GATHER_SLOTS else "bucket"
+    log(f"{label} row gather [{b_rows}, {d}] ({b_rows * d} slots): flat "
+        f"{ms['flat']:.3f} ms, per bucket {ms['bucket']:.3f} ms (host "
+        f"wall, synchronized; the engines take {pick}), same rows {same}")
+    if not same:
+        raise AssertionError(f"{label} row gather [{b_rows}, {d}]: the "
+                             "flat and per-bucket gathers differ")
+
+
+# (label, scheduler, options) of the engine runs of phases 12 and 13
+def sched_cases(window):
+    return (("chromatic", "chromatic", {}), ("bsp", "bsp", {}),
+            ("priority", "priority", {"k_select": window}),
+            ("priority fifo", "priority", {"k_select": window,
+                                           "fifo": True}),
+            ("locking", "locking", {"max_pending": window}))
+
+
+def phase_sched_parity(torch, ctx):
+    """The 2k Zipf graph and a 2,000-phrase NER corpus on the new
+    engines: CC and PageRank GPU == CPU bitwise, PageRank's four launch
+    shapes and arms bitwise on the GPU, CoEM's kernel arm == dense arm
+    bitwise on the GPU and within 1e-6 of the CPU."""
+    from repro_torch import api
+    from repro_torch.apps import cc, coem, pagerank
+    from repro_torch.core.graph import zipf_edges
+    from repro_torch.core.update import Consistency, UpdateFn
+    from repro_torch.kernels.ell_spmv import ell_spmv
+    dev = ctx["dev"]
+    n = 2000
+    edges = zipf_edges(n, alpha=2.0, max_deg=64, seed=1)
+    g, upd, _ = cc.build(edges, n, device="cpu")
+    truth = cc.reference_components(edges, n)
+    full = UpdateFn(upd.fn, Consistency.FULL, name="cc")
+    for label, sched, opts in sched_cases(64) + (
+            ("locking FULL", "locking", {"max_pending": 64}),):
+        t0 = time.perf_counter()
+        u = full if label.endswith("FULL") else upd
+        cpu = api.run(g, u, scheduler=sched, device="cpu", **opts)
+        gpu = api.run(g, u, scheduler=sched, device=dev, **opts)
+        same = (torch.equal(gpu.vertex_data["label"].cpu(),
+                            cpu.vertex_data["label"])
+                and (gpu.superstep, gpu.n_updates)
+                == (cpu.superstep, cpu.n_updates))
+        log(f"2k CC {label}: {gpu.superstep} supersteps, {gpu.n_updates} "
+            f"updates, GPU == CPU {same} ({time.perf_counter() - t0:.1f} s)")
+        if not same or gpu.active_any or not (
+                cpu.vertex_data["label"].numpy() == truth).all():
+            raise AssertionError(f"2k CC {label}: GPU != CPU or not the "
+                                 "union-find labels")
+    g, upd, syncs = pagerank.build(edges, n, eps=EPS, device="cpu")
+    budget = {"num_supersteps": PARITY_STEPS}
+    for label, sched, opts in sched_cases(64):
+        t0 = time.perf_counter()
+        cpu = api.run(g, upd, syncs=syncs, scheduler=sched, device="cpu",
+                      **opts, **budget)
+        for dispatch in ("bucket", "batch"):
+            for use_kernel in (True, False):
+                before = ell_spmv.launches
+                gpu = api.run(g, upd, syncs=syncs, scheduler=sched,
+                              device=dev, dispatch=dispatch,
+                              use_kernel=use_kernel, **opts, **budget)
+                same = (torch.equal(gpu.vertex_data["rank"].cpu(),
+                                    cpu.vertex_data["rank"])
+                        and (gpu.superstep, gpu.n_updates)
+                        == (cpu.superstep, cpu.n_updates)
+                        and ell_spmv.launches > before)
+                if not same:
+                    raise AssertionError(
+                        f"2k PageRank {label} {dispatch} use_kernel="
+                        f"{use_kernel}: GPU != CPU (or no launch)")
+        log(f"2k PageRank {label}: {cpu.superstep} supersteps, "
+            f"{cpu.n_updates} updates; bucket/batch x kernel/dense on the "
+            f"GPU == CPU bitwise ({time.perf_counter() - t0:.1f} s)")
+    prob = coem.synthetic_ner(2000, 500, NER_TYPES, seed=3, device="cpu")
+    g, upd, syncs = coem.build(prob, eps=COEM_EPS)
+    for label, sched, opts in (("chromatic", "chromatic", {}),
+                               ("priority", "priority", {"k_select": 64})):
+        t0 = time.perf_counter()
+        cpu = api.run(g, upd, syncs=syncs, scheduler=sched, device="cpu",
+                      **opts, **budget)
+        outs = [api.run(g, upd, syncs=syncs, scheduler=sched, device=dev,
+                        dispatch=d, use_kernel=k, **opts, **budget)
+                for d in ("bucket", "batch") for k in (True, False)]
+        p0 = outs[0].vertex_data["p"]
+        if not all(torch.equal(o.vertex_data["p"], p0)
+                   and o.n_updates == outs[0].n_updates for o in outs):
+            raise AssertionError(f"2k CoEM {label}: the GPU's arms or "
+                                 "launch shapes differ")
+        diff = float((p0.cpu() - cpu.vertex_data["p"]).abs().max())
+        log(f"2k CoEM {label} (F={NER_TYPES}): {outs[0].superstep} "
+            f"supersteps, {outs[0].n_updates} updates (CPU "
+            f"{cpu.n_updates}); kernel == dense, bucket == batch bitwise on "
+            f"the GPU; GPU vs CPU max |diff| {diff:.2e} (limit 1e-6; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if diff > 1e-6:
+            raise AssertionError(f"2k CoEM {label}: GPU vs CPU {diff}")
+
+
+def scheduler_layers():
+    """``(owner, attribute, label)`` of the layers a superstep of any
+    engine is split into (a layer called inside another counts there)."""
+    import repro_torch.core.engine_locking as el
+    import repro_torch.core.engine_priority as ep
+    import repro_torch.core.exec as ex
+    from repro_torch.core.graph import SlicedEll
+    return [(ep, "stable_top_k", "selection (top-k sort)"),
+            (el, "stable_top_k", "selection (top-k sort)"),
+            (el, "conflict_winners", "claim pass"),
+            (el, "conflict_winners_windowed", "claim pass"),
+            (SlicedEll, "window_bucket", "window width (.item())"),
+            (ex, "gather_scopes", "scope gather"),
+            (SlicedEll, "rows", "scope gather"),
+            (ex, "route_batch_to_buckets", "routing"),
+            (SlicedEll, "row_activation", "routing"),
+            (ex, "_owner_rows", "routing"),
+            (ex, "ell_spmv_bucketed", "kernel"),
+            (ex, "ell_spmv_batched", "kernel"),
+            (ex, "scatter_result", "write-back"),
+            (ex, "consume_and_reschedule", "reschedule"),
+            (ex, "refresh_syncs", "syncs")]
+
+
+def sched_run(torch, ctx, label, graph, upd, syncs, sched, opts,
+              count=True, **kw):
+    """One full-size run through ``api.run``: the ell_spmv count set to 0
+    just before and read just after, wall time, peak memory, logged and
+    kept for the report.  A main-path run (``count``) adds its launches
+    to the report's; a run that only compares two arms does not."""
+    from repro_torch import api
+    from repro_torch.kernels.ell_spmv import ell_spmv
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ell_spmv.launches = 0
+    t0 = time.perf_counter()
+    res = api.run(graph, upd, syncs=syncs, scheduler=sched,
+                  device=ctx["dev"], **opts, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ell_spmv.launches
+    peak = torch.cuda.max_memory_allocated()
+    if count:
+        ctx["launches"]["ell_spmv"] += launches
+    eng = res.engine
+    shape = eng.resolve_dispatch(opts.get("k_select",
+                                          opts.get("max_pending", 0))
+                                 or graph.n_vertices)
+    ms = 1e3 * wall / max(res.superstep, 1)
+    log(f"{label}: {res.superstep} supersteps, {res.n_updates} updates, "
+        f"drained {not res.active_any}, {wall:.3f} s ({ms:.2f} "
+        f"ms/superstep), launch shape {shape}, ell_spmv launches "
+        f"{launches}, peak device memory {peak / 2**30:.2f} GiB")
+    ctx.setdefault("sched_runs", []).append(dict(
+        label=label, supersteps=res.superstep, updates=res.n_updates,
+        seconds=wall, ms_per_superstep=ms, launches=launches,
+        peak_gib=peak / 2**30))
+    return res, launches
+
+
+class Phase(NamedTuple):
+    """One phase as ``capture_phases`` saw it."""
+    ids: object            # the executed ids
+    globals: dict          # the sync values the phase read
+    v_before: dict         # vertex and edge data before and after
+    e_before: dict
+    v_after: dict
+    e_after: dict
+
+
+def capture_phases(ex, keep):
+    """Spy on ``apply_batch``: a ``Phase`` for each of the last ``keep``
+    phases (tensors are replaced, never written in place, so references
+    suffice), and the count of executed ids of every phase.  Returns the
+    two lists it fills and a function that removes the spy."""
+    phases, counts, real = [], [], ex.apply_batch
+
+    def spy(struct, update_fn, carry, ids, valid, globals_, *a, **k):
+        out = real(struct, update_fn, carry, ids, valid, globals_, *a, **k)
+        done = ids[valid & carry[2][ids.long()]]
+        counts.append(done.numel())
+        phases.append(Phase(done, globals_, carry[0], carry[1], out[0],
+                            out[1]))
+        del phases[:-keep]
+        return out
+    ex.apply_batch = spy
+    return phases, counts, lambda: setattr(ex, "apply_batch", real)
+
+
+def sample_ids(torch, ids, rng):
+    """At most ``CHECKED_ROWS`` of a phase's executed ids."""
+    if ids.numel() <= CHECKED_ROWS:
+        return ids
+    pick = rng.choice(ids.numel(), CHECKED_ROWS, replace=False)
+    return ids[torch.from_numpy(pick).to(ids.device)]
+
+
+def check_coem_rows(np, torch, graph, phases, rng):
+    """Rows of the last superstep recomputed in float64 on the host from
+    the data before their phase (the weighted mix, the normalization,
+    the seed clamp); up to CHECKED_ROWS of each phase.  Returns
+    ``(rows checked, max |diff|)``."""
+    count = graph.edge_data["count"]
+    seed = graph.vertex_data["is_seed"]
+    worst, checked = 0.0, 0
+    for ph in phases:
+        if ph.ids.numel() == 0:
+            continue
+        ids, before, after = sample_ids(torch, ph.ids, rng), ph.v_before, \
+            ph.v_after
+        r = graph.struct_rows(ids)
+        w = torch.where(r.nbr_mask, count[r.edge_ids.long()], 0.0)
+        w = w.cpu().numpy().astype(np.float64)
+        pn = before["p"][r.nbrs.long()].cpu().numpy().astype(np.float64)
+        mix = np.einsum("sd,sdt->st", w, pn)
+        new = mix / np.maximum(w.sum(1), 1e-9)[:, None]
+        new = new / np.maximum(new.sum(1), 1e-9)[:, None]
+        own = before["p"][ids.long()].cpu().numpy().astype(np.float64)
+        new = np.where(seed[ids.long()].cpu().numpy()[:, None] > 0, own, new)
+        got = after["p"][ids.long()].cpu().numpy().astype(np.float64)
+        worst = max(worst, float(np.abs(got - new).max()))
+        checked += ids.numel()
+    return checked, worst
+
+
+def check_lbp_rows(np, torch, graph, phases, rng):
+    """Rows of the last superstep recomputed in float64 on the host from
+    the data and the GMM centroids before their phase: the unary terms,
+    the outgoing messages (the cavity, the Potts logsumexp, the
+    normalization) and the normalized belief; up to CHECKED_ROWS of each
+    phase.  Returns ``(rows checked, max |diff| / scale)``, the scale
+    being at least 1 and the largest input of each value (the unary term
+    itself, a slot's cavity, a row's belief)."""
+    psi = -COSEG_BETA * (1.0 - np.eye(COSEG_LABELS))
+    host = lambda t: t.cpu().numpy().astype(np.float64)
+    rel = lambda got, want, scale: np.abs(got - want) / np.maximum(1.0,
+                                                                   scale)
+
+    def lse(a, axis):
+        top = a.max(axis, keepdims=True)
+        return top + np.log(np.exp(a - top).sum(axis, keepdims=True))
+    worst, checked = 0.0, 0
+    for ph in phases:
+        if ph.ids.numel() == 0:
+            continue
+        ids = sample_ids(torch, ph.ids, rng)
+        v = ids.long()
+        r = graph.struct_rows(ids)
+        e = r.edge_ids.long()
+        mask = r.nbr_mask.cpu().numpy()[..., None]
+        src = r.is_src.cpu().numpy()[..., None]
+        if "gmm" in ph.globals:
+            feat, mu = host(ph.v_before["feat"][v]), host(ph.globals["gmm"])
+            unary = -COSEG_GAMMA * ((feat[:, None] - mu[None]) ** 2).sum(-1)
+        else:
+            unary = host(ph.v_before["unary"][v])
+        m01, m10 = (host(ph.e_before[k][e]) for k in ("msg01", "msg10"))
+        inc = np.where(mask, np.where(src, m10, m01), 0.0)     # [B, D, K]
+        belief = unary + inc.sum(1)
+        cavity = belief[:, None, :] - inc
+        out = lse(cavity[..., :, None] + psi, 2)[..., 0, :]    # [B, D, K]
+        out = out - lse(out, -1)
+        a01, a10 = (host(ph.e_after[k][e]) for k in ("msg01", "msg10"))
+        d_msg = np.where(mask, rel(np.where(src, a01, a10), out, np.abs(
+            cavity).max(-1, keepdims=True)), 0.0)
+        d_bel = rel(host(ph.v_after["belief"][v]), belief - lse(belief, -1),
+                    np.abs(belief).max(-1, keepdims=True))
+        d_un = rel(host(ph.v_after["unary"][v]), unary, np.abs(unary))
+        worst = max(worst, float(d_msg.max()), float(d_bel.max()),
+                    float(d_un.max()))
+        checked += ids.numel()
+    return checked, worst
+
+
+def phase_sched_main(torch, ctx):
+    """The full-size runs of the new engines: CC on the Zipf graph under
+    four engines, CoEM and CoSeg LBP, counted, checked and broken down."""
+    import numpy as np
+
+    import repro_torch.core.exec as ex
+    from repro_torch.apps import cc, coem, lbp
+    layers = scheduler_layers()
+    rng = np.random.default_rng(0)
+
+    g = ctx["cc_graph"]
+    upd = cc.make_update()
+    t0 = time.perf_counter()
+    truth = cc.reference_components(ctx["zipf_edges"], FULL_N)
+    log(f"union-find on the host: {len(np.unique(truth))} components, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for label, sched, opts in sched_cases(WINDOW):
+        if label == "priority fifo":
+            continue
+        res, _ = sched_run(torch, ctx, f"CC {label}", g, upd, (), sched,
+                           opts, max_supersteps=CC_MAX_SUPERSTEPS)
+        labels = res.vertex_data["label"].cpu().numpy()
+        if res.active_any or not np.array_equal(labels, truth):
+            raise AssertionError(f"CC {label}: not drained or "
+                                 f"{int((labels != truth).sum())} labels "
+                                 "differ from union-find")
+        report_superstep(torch, res.engine, layers)
+
+    ner = ctx["ner"]
+    g, upd, syncs = coem.build(ner, eps=COEM_EPS)
+    seeds_only = coem.label_accuracy(ner, g.vertex_data)
+    for label, sched, opts, kw in (
+            ("chromatic", "chromatic", {}, {"max_supersteps": COEM_SWEEPS}),
+            ("priority", "priority", {"k_select": WINDOW},
+             {"num_supersteps": COEM_WINDOW_STEPS}),
+            ("locking", "locking", {"max_pending": WINDOW},
+             {"num_supersteps": COEM_WINDOW_STEPS})):
+        phases, _, unspy = capture_phases(ex, keep=2)
+        try:
+            res, launches = sched_run(torch, ctx, f"CoEM {label}", g, upd,
+                                      syncs, sched, opts, **kw)
+        finally:
+            unspy()
+        last = phases[-res.engine.n_phases:]
+        checked, worst = check_coem_rows(np, torch, g, last, rng)
+        p = res.vertex_data["p"].cpu().numpy().astype(np.float64)
+        pc = np.clip(p, 1e-9, 1.0)
+        h = float(-(pc * np.log(pc)).sum(1).mean())
+        sync = float(res.globals["entropy"])
+        acc = coem.label_accuracy(ner, res.vertex_data)
+        log(f"CoEM {label}: {checked} rows of the last superstep against "
+            f"float64: max |diff| {worst:.2e} (limit {COEM_HOST_TOL:.0e}); "
+            f"entropy sync {sync:.7f} vs float64 {h:.7f} (|diff| "
+            f"{abs(sync - h):.2e}); accuracy {acc:.4f} vs seeds alone "
+            f"{seeds_only:.4f}")
+        if launches <= 0:
+            raise AssertionError(f"CoEM {label} never launched ell_spmv")
+        if worst > COEM_HOST_TOL or abs(sync - h) > COEM_HOST_TOL:
+            raise AssertionError(f"CoEM {label}: off float64")
+        if not acc > seeds_only or not np.isfinite(p).all():
+            raise AssertionError(f"CoEM {label}: accuracy {acc} does not "
+                                 f"beat the seeds' {seeds_only}")
+        if sched == "chromatic" and res.active_any:
+            raise AssertionError("CoEM chromatic did not converge")
+        report_superstep(torch, res.engine, layers)
+        phases.clear()
+    # the dense arm at the window's size: bitwise the kernel arm (a
+    # comparison, so its launches are not the main path's)
+    outs = [sched_run(torch, ctx, f"CoEM priority use_kernel={k}", g, upd,
+                      syncs, "priority", {"k_select": WINDOW}, count=False,
+                      num_supersteps=COEM_DENSE_STEPS, use_kernel=k)[0]
+            for k in (True, False)]
+    if not torch.equal(outs[0].vertex_data["p"], outs[1].vertex_data["p"]):
+        raise AssertionError("CoEM priority: kernel arm != dense arm")
+    log("CoEM priority: kernel arm == dense arm bitwise at full size")
+    del outs
+
+    prob = ctx["coseg"]
+    g, upd, syncs = lbp.build(prob, beta=COSEG_BETA, gamma=COSEG_GAMMA,
+                              eps=COSEG_EPS)
+    unary = float((g.vertex_data["unary"].argmax(1).cpu().numpy()
+                   == prob.true_labels).mean())
+    # every vertex at priority 1 puts the lowest 32,768 ids in the window,
+    # where the min-id rule lets few win; priorities drawn from the seed
+    # scatter the first window over the frames
+    drawn = rng.random(g.n_vertices).astype(np.float32)
+    for label, sched, opts, steps, prio in (
+            ("locking", "locking", {"max_pending": WINDOW},
+             COSEG_LOCKING_STEPS, None),
+            ("locking, drawn priorities", "locking",
+             {"max_pending": WINDOW}, COSEG_LOCKING_STEPS, drawn),
+            ("chromatic", "chromatic", {}, COSEG_SWEEPS, None)):
+        phases, counts, unspy = capture_phases(ex, keep=2)
+        try:
+            res, _ = sched_run(torch, ctx, f"CoSeg LBP {label}", g, upd,
+                               syncs, sched, opts, num_supersteps=steps,
+                               priority=prio)
+        finally:
+            unspy()
+        n_ph = res.engine.n_phases
+        per_step = [sum(counts[i: i + n_ph])
+                    for i in range(0, len(counts), n_ph)]
+        checked, worst = check_lbp_rows(np, torch, g, phases[-n_ph:],
+                                        rng)
+        b = res.vertex_data["belief"].cpu().numpy().astype(np.float64)
+        feat = res.vertex_data["feat"].cpu().numpy().astype(np.float64)
+        pr = np.exp(b - b.max(1, keepdims=True))
+        pr /= pr.sum(1, keepdims=True)
+        gmm = (pr.T @ feat) / np.maximum(pr.sum(0), 1e-6)[:, None]
+        err = float(np.abs(res.globals["gmm"].cpu().numpy() - gmm).max())
+        acc = lbp.label_accuracy(prob, res.vertex_data)
+        log(f"CoSeg LBP {label}: updates a superstep {per_step}")
+        log(f"CoSeg LBP {label}: {checked} rows of the last superstep "
+            f"against float64 (unary, messages, belief): max |diff| / "
+            f"scale {worst:.2e} (limit {LBP_HOST_TOL:.0e}); "
+            f"accuracy {acc:.4f} "
+            f"vs unary only {unary:.4f}; GMM sync vs float64 max |diff| "
+            f"{err:.2e} (limit {GMM_HOST_TOL:.0e})")
+        if not checked or worst > LBP_HOST_TOL:
+            raise AssertionError(f"CoSeg LBP {label}: {checked} rows "
+                                 f"checked, off float64 by {worst}")
+        if not np.isfinite(b).all() or acc < unary or err > GMM_HOST_TOL:
+            raise AssertionError(f"CoSeg LBP {label}: accuracy {acc} < "
+                                 f"{unary} or GMM off by {err}")
+        report_superstep(torch, res.engine, layers, priority=prio)
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         log("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -1517,7 +2212,8 @@ def main() -> int:
         f"{graph.ell.padded_slots} sliced slots, widths {graph.ell.widths}; "
         f"host set-up: edges {t1 - t0:.1f} s, build + coloring "
         f"{t2 - t1:.1f} s")
-    ctx.update(graph=graph, update=update, syncs=syncs, edges=edges)
+    ctx.update(graph=graph, update=update, syncs=syncs, edges=edges,
+               zipf_edges=edges, zipf_colors=graph.colors.cpu().numpy())
     del graph, update, syncs, edges      # ctx holds them until phase 8
 
     for name, fn in (("phase 2 kernels", phase_kernels),
@@ -1529,7 +2225,11 @@ def main() -> int:
                      ("phase 7 als main path", phase_als_main),
                      ("phase 8 attention kernels", phase_attention),
                      ("phase 9 serve parity", phase_serve_parity),
-                     ("phase 10 serve main path", phase_serve_main)):
+                     ("phase 10 serve main path", phase_serve_main),
+                     ("schedulers set-up", setup_schedulers),
+                     ("phase 11 schedulers kernels", phase_sched_kernels),
+                     ("phase 12 schedulers parity", phase_sched_parity),
+                     ("phase 13 schedulers main path", phase_sched_main)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:
@@ -1542,6 +2242,7 @@ def main() -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
+    log(f"all phases: {time.perf_counter() - started:.1f} s")
 
     sweep = ctx["kernel_sweep"]       # a PageRank sweep, one launch
     kernels = [{

@@ -1,6 +1,6 @@
 """Vertex colorings for the chromatic engine (paper §4.2.1).
 
-A copy of ``repro.core.coloring``'s greedy and bipartite colorings:
+A copy of ``repro.core.coloring``'s greedy, single and bipartite colorings:
 the same first-fit rule in the same largest-degree-first order, so the
 colors are identical.  Host-side numpy; the adjacency is a CSR built
 with numpy instead of Python lists of lists, which changes the speed
@@ -43,6 +43,12 @@ def greedy_coloring(n_vertices: int, edges: np.ndarray,
             c += 1
         colors[v] = c
     return np.asarray(colors, dtype=np.int32)
+
+
+def single_color(n_vertices: int) -> np.ndarray:
+    """All vertices one color: the vertex consistency model (independent
+    map operations), and the BSP engine's Jacobi sweeps."""
+    return np.zeros(n_vertices, dtype=np.int32)
 
 
 def bipartite_coloring(n_left: int, n_vertices: int) -> np.ndarray:

@@ -23,7 +23,12 @@ from repro_torch.core.registry import register_scheduler
 class ChromaticEngine(ExecutorCore):
     """Strategy: phase c = all active vertices of color c (static batches)."""
 
+    # color batches sweep most of the graph: every bucket's rows is the
+    # right launch shape (DESIGN.md §8)
+    dispatch: str = "bucket"
+
     def __post_init__(self):
+        super().__post_init__()
         if self.graph.colors is None:
             raise ValueError("graph needs colors; call graph.with_colors(...)")
         ids, valid = build_color_batches(self.graph.colors.cpu().numpy())
@@ -33,7 +38,7 @@ class ChromaticEngine(ExecutorCore):
         self.n_colors = ids.shape[0]
         self.n_phases = self.n_colors
 
-    def select(self, c: int):
+    def select(self, c: int, ctx):
         return self._color_ids[c], self._color_valid[c]
 
 

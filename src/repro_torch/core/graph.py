@@ -40,6 +40,20 @@ class EllRows(NamedTuple):
     is_src: torch.Tensor
 
 
+# the largest batch (rows x width) gathered by ``_flat_rows``; larger
+# ones take ``_bucket_rows``.  Below it the per-bucket gather's host
+# syncs cost more than the flat gather's extra bytes.  On an H100 the two
+# cross near 1.5e8 slots at width 256 (the row-gather lines of
+# ``chip_smoke.py``'s phase 11: flat 1.5 against 2.8 ms at 262,144 x
+# 256, 6.6 against 3.7 ms at 1,260,973 x 256)
+FLAT_GATHER_SLOTS = 1 << 27
+
+# each block of the flat stores starts on a multiple of this many slots
+# (256 bytes of int32), as a block allocated on its own would: the
+# kernels' vector loads need an aligned row base
+SLOT_ALIGN = 64
+
+
 def sliced_slot_count(starts: Sequence[int], widths: Sequence[int]) -> int:
     """Stored (= bucket-kernel-computed) slots ``sum_b Nv_b * W_b``."""
     return sum((starts[b + 1] - starts[b]) * widths[b]
@@ -64,7 +78,9 @@ class SlicedEll:
     ``[starts[b], starts[b+1])`` with block width ``widths[b]``.
     ``perm[p]`` is the row stored at bucketed position ``p``;
     ``inv_perm[r]`` is the position of row ``r``.  Neighbor values in
-    the blocks are row ids in the original addressing.
+    the blocks are row ids in the original addressing.  The blocks are
+    views of four flat stores (``slots``), so a batch of rows from any
+    buckets is one gather of each.
     """
 
     widths: tuple[int, ...]
@@ -72,12 +88,41 @@ class SlicedEll:
     n_rows: int
     max_deg: int
     pad_edge: int
-    nbrs: tuple[torch.Tensor, ...]        # [Nv_b, W_b] int32
-    nbr_mask: tuple[torch.Tensor, ...]    # [Nv_b, W_b] bool
-    edge_ids: tuple[torch.Tensor, ...]    # [Nv_b, W_b] int32
-    is_src: tuple[torch.Tensor, ...]      # [Nv_b, W_b] bool
+    # the stored slots, flat: bucket b's block row-major from
+    # ``block_offsets(...)[0][b]``; the gaps between blocks and the last
+    # slot hold padding (nbr 0, unmasked, the pad edge, not src)
+    slots: EllRows
     perm: torch.Tensor                    # [total_rows] int32
     inv_perm: torch.Tensor                # [n_rows] int32
+    # views of ``slots``: bucket b's [Nv_b, W_b] blocks
+    nbrs: tuple[torch.Tensor, ...] = dataclasses.field(
+        init=False, repr=False, compare=False)          # int32
+    nbr_mask: tuple[torch.Tensor, ...] = dataclasses.field(
+        init=False, repr=False, compare=False)          # bool
+    edge_ids: tuple[torch.Tensor, ...] = dataclasses.field(
+        init=False, repr=False, compare=False)          # int32
+    is_src: tuple[torch.Tensor, ...] = dataclasses.field(
+        init=False, repr=False, compare=False)          # bool
+
+    def __post_init__(self):
+        offs, pad = block_offsets(self.starts, self.widths)
+        sizes = [e - s for s, e in zip(self.starts, self.starts[1:])]
+        self.nbrs, self.nbr_mask, self.edge_ids, self.is_src = (
+            tuple(flat[o: o + n * w].view(n, w)
+                  for o, n, w in zip(offs, sizes, self.widths))
+            for flat in self.slots)
+        # per bucketed position (and the ``total_rows`` sentinel): the
+        # row's width (0 for the sentinel) and its first slot in ``slots``
+        b = np.repeat(np.arange(self.n_buckets), sizes)
+        row = np.arange(self.total_rows) - np.asarray(self.starts[:-1])[b]
+        width = np.asarray(self.widths, np.int64)[b]
+        offset = np.asarray(offs, np.int64)[b] + row * width
+        up = lambda a: torch.from_numpy(
+            np.append(a, 0).astype(np.int32)).to(self.device)
+        self._row_width, self._row_offset = up(width), up(offset)
+        self._pad_slot = pad
+        self._ends = torch.tensor(self.starts[1:], dtype=torch.int32,
+                                  device=self.device)
 
     @property
     def device(self) -> torch.device:
@@ -120,22 +165,59 @@ class SlicedEll:
                 return w
         return self.scope_widths[-1]
 
+    def window_bucket(self, ids: torch.Tensor, sel: torch.Tensor) -> int:
+        """Index (into ``scope_widths``) of the widest width class a
+        selected row of the window needs; 0 for an empty selection.
+
+        The batch-shaped dispatch branches on it on the host, so it is
+        one device-to-host read (``.item()``) a call.
+        """
+        if ids.numel() == 0:
+            return 0
+        b = torch.searchsorted(self._ends, self.inv_perm[ids.long()],
+                               right=True)
+        return int(torch.where(sel, b, 0).max().item())
+
     def rows(self, ids: torch.Tensor, width: int | None = None) -> EllRows:
         """Materialize ``[B, W]`` adjacency rows (default ``W=max_deg``);
-        columns past a row's bucket width read as padding."""
+        columns past a row's bucket width read as padding.  ``width``
+        snaps up to a bucket width; rows of wider buckets then read as
+        empty, so callers pass at least the window's ``window_bucket``
+        width."""
         d = self.max_deg if width is None else self.snap_width(width)
         return self._gather_rows(self.inv_perm[ids.long()], d)
 
     def _gather_rows(self, pos: torch.Tensor, d: int) -> EllRows:
         """Rows at bucketed positions ``pos [B]``; positions outside
         every bucket (the ``total_rows`` sentinel) read as padding.
-
-        The outputs are allocated once at ``[B, d]`` and each bucket
-        writes, in place, only the leading ``W_b`` columns of its own
-        rows.  The reference pads every bucket's gather to ``[B, d]``
-        and selects with ``where``; at full size (B ~ 1.3M rows, d=256)
-        that would allocate four ``[B, d]`` arrays per bucket.
+        Batches of at most ``FLAT_GATHER_SLOTS`` slots take
+        ``_flat_rows``, larger ones ``_bucket_rows``: the same rows.
         """
+        if pos.shape[0] * d <= FLAT_GATHER_SLOTS:
+            return self._flat_rows(pos, d)
+        return self._bucket_rows(pos, d)
+
+    def _flat_rows(self, pos: torch.Tensor, d: int) -> EllRows:
+        """The gather as one ``index_select`` of each flat store, with no
+        host sync: slot ``j`` of the row at ``p`` is element
+        ``_row_offset[p] + j`` where ``j`` is below the row's width (and
+        the width at most ``d``: a wider row reads as empty), else the
+        pad slot.  It reads and writes ~40 bytes a ``[B, d]`` slot."""
+        width = self._row_width.index_select(0, pos)
+        width = torch.where(width <= d, width, 0)
+        cols = torch.arange(d, dtype=torch.int32, device=self.device)
+        idx = self._row_offset.index_select(0, pos)[:, None] + cols
+        idx.masked_fill_(cols >= width[:, None], self._pad_slot)
+        idx = idx.view(-1)
+        return EllRows(*(s.index_select(0, idx).view(pos.shape[0], d)
+                         for s in self.slots))
+
+    def _bucket_rows(self, pos: torch.Tensor, d: int) -> EllRows:
+        """The gather bucket by bucket: outputs filled with padding at
+        ``[B, d]``, then each bucket copies the leading ``W_b`` columns
+        of its own rows from its block.  A bucket's rows are found with
+        a ``nonzero``, one host sync a bucket, but only stored slots are
+        copied (~10 bytes a ``[B, d]`` slot)."""
         b_rows = pos.shape[0]
         dev = self.device
         out_n = torch.zeros((b_rows, d), dtype=torch.int32, device=dev)
@@ -169,11 +251,36 @@ class SlicedEll:
         return self.rows(torch.arange(self.n_rows, device=self.device))
 
     def to(self, device) -> "SlicedEll":
-        mv = lambda ts: tuple(t.to(device) for t in ts)
         return dataclasses.replace(
-            self, nbrs=mv(self.nbrs), nbr_mask=mv(self.nbr_mask),
-            edge_ids=mv(self.edge_ids), is_src=mv(self.is_src),
+            self, slots=EllRows(*(t.to(device) for t in self.slots)),
             perm=self.perm.to(device), inv_perm=self.inv_perm.to(device))
+
+
+def block_offsets(starts: Sequence[int],
+                  widths: Sequence[int]) -> tuple[list[int], int]:
+    """Where each bucket's block starts in the flat stores (a multiple
+    of ``SLOT_ALIGN``), and the index of the last slot, the pad slot."""
+    offs, o = [], 0
+    for b, w in enumerate(widths):
+        offs.append(o)
+        o += -(-(starts[b + 1] - starts[b]) * w // SLOT_ALIGN) * SLOT_ALIGN
+    return offs, o
+
+
+def flat_slots(blocks: Sequence[Sequence[np.ndarray]], starts, widths,
+               pad_edge: int, device) -> EllRows:
+    """The flat stores of ``SlicedEll.slots`` from per-bucket host blocks
+    ``(nbrs, nbr_mask, edge_ids, is_src)``, copied to ``device`` once."""
+    offs, pad = block_offsets(starts, widths)
+    out = []
+    for arrs, fill, dtype in zip(blocks, (0, False, pad_edge, False),
+                                 (np.int32, bool, np.int32, bool)):
+        flat = np.full(pad + 1, fill, dtype)
+        for o, a in zip(offs, arrs):
+            a = np.asarray(a).reshape(-1)
+            flat[o: o + a.size] = a
+        out.append(torch.from_numpy(flat).to(device))
+    return EllRows(*out)
 
 
 def bucket_major_edge_order(ell: SlicedEll, n_edges: int) -> np.ndarray:
@@ -201,8 +308,8 @@ def _renumber_edge_ids(ell: SlicedEll, inv_order: np.ndarray,
     table = np.arange(ell.pad_edge + 1, dtype=np.int32)
     table[:n_edges] = inv_order
     table = torch.from_numpy(table).to(ell.device)
-    return dataclasses.replace(
-        ell, edge_ids=tuple(table[e.long()] for e in ell.edge_ids))
+    eids = table[ell.slots.edge_ids.long()]
+    return dataclasses.replace(ell, slots=ell.slots._replace(edge_ids=eids))
 
 
 def default_bucket_widths(max_deg: int) -> tuple[int, ...]:
@@ -230,7 +337,7 @@ def build_sliced_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
     Each row goes to the smallest bucket whose width covers its real
     slot count; within a bucket, rows keep ascending id order; empty
     buckets are dropped.  The blocks are built on the host and copied
-    to ``device`` once.
+    to ``device`` once, as one flat store each (``flat_slots``).
     """
     device = resolve_device(device)
     n_rows, d = nbrs.shape
@@ -263,15 +370,15 @@ def build_sliced_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
         sr[:, :we] = is_src[g, :we]
         perm[starts[b]: starts[b + 1]] = g
         inv_perm[g] = np.arange(starts[b], starts[b + 1])
-        bn.append(up(nb))
-        bm.append(up(mk))
-        be.append(up(ei))
-        bs.append(up(sr))
+        bn.append(nb)
+        bm.append(mk)
+        be.append(ei)
+        bs.append(sr)
     return SlicedEll(
         widths=widths, starts=starts, n_rows=n_rows, max_deg=int(d),
-        pad_edge=int(pad_edge), nbrs=tuple(bn), nbr_mask=tuple(bm),
-        edge_ids=tuple(be), is_src=tuple(bs), perm=up(perm),
-        inv_perm=up(inv_perm))
+        pad_edge=int(pad_edge),
+        slots=flat_slots((bn, bm, be, bs), starts, widths, pad_edge, device),
+        perm=up(perm), inv_perm=up(inv_perm))
 
 
 # ----------------------------------------------------------------------
@@ -441,6 +548,16 @@ class DataGraph:
     def to_padded(self) -> EllRows:
         """Monolithic ``[Nv, max_deg]`` view (oracle / test escape hatch)."""
         return self.ell.to_padded()
+
+    @property
+    def adjacency_lists(self) -> list[list[int]]:
+        """Host-side adjacency in stored edge order (the sequential
+        oracle's locking replay reads it)."""
+        adj: list[list[int]] = [[] for _ in range(self.n_vertices)]
+        for u, v in self.edges_np.tolist():
+            adj[u].append(v)
+            adj[v].append(u)
+        return adj
 
     # ------------------------------------------------------------------
     def with_colors(self, colors: np.ndarray) -> "DataGraph":

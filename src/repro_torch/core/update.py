@@ -32,9 +32,10 @@ class Consistency(enum.Enum):
 class ScopeBatch:
     """The scopes S_v of a batch of vertices, materialized by gathers.
 
-    The slot axis D is ``max_deg`` on the bucket dispatch path; user
-    update functions treat it as opaque (mask with ``nbr_mask``, reduce
-    over the axis).
+    The slot axis D is ``max_deg`` on the bucket dispatch path and the
+    window's snapped bucket width ``W <= max_deg`` on the batch-shaped
+    path; user update functions treat it as opaque (mask with
+    ``nbr_mask``, reduce over the axis).
     """
     v_ids: torch.Tensor         # [B] int32 vertex ids
     v_data: dict                # [B, ...]      central vertex data (R/W)
@@ -97,6 +98,16 @@ def weighted_slot_fold(w: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return ell_fold(w.contiguous(), vals.contiguous())
 
 
+def slot_fold_sum(vals: torch.Tensor) -> torch.Tensor:
+    """acc += vals[:, j] for j in slot order: a left fold over the slot
+    axis in float32.  Add-only, so it rounds the same wherever it runs
+    and at any slot width (trailing zero slots add exactly +0.0)."""
+    acc = vals.new_zeros(vals.shape[:1] + vals.shape[2:], dtype=torch.float32)
+    for j in range(vals.shape[1]):
+        acc = acc + vals[:, j]
+    return acc
+
+
 def aggregator_update(feature, weight, combine,
                       consistency: Consistency = Consistency.EDGE,
                       name: str = "aggregate") -> UpdateFn:
@@ -122,14 +133,18 @@ def aggregator_update(feature, weight, combine,
 
 def gather_scopes(graph_struct, vertex_data: dict, edge_data: dict,
                   v_ids: torch.Tensor, globals_: dict,
-                  with_nbr_data: bool = True) -> ScopeBatch:
+                  with_nbr_data: bool = True, rows=None) -> ScopeBatch:
     """Materialize ScopeBatch for the vertex ids ``v_ids`` ([B] int32).
 
     ``graph_struct`` exposes ``struct_rows(ids)`` / ``degree``.
     ``with_nbr_data=False`` produces a lite scope (``nbr_data=None``)
     for the aggregator fast path, skipping the [B, D, F] gather.
+    ``rows`` takes the batch's already-gathered adjacency (a claim
+    pass's, or a window's at its snapped width), which also sets the
+    scope's slot width.
     """
-    rows = graph_struct.struct_rows(v_ids)
+    if rows is None:
+        rows = graph_struct.struct_rows(v_ids)
     vi = v_ids.long()
     eids = rows.edge_ids.long()
     nbr_data = None

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.graph import DataGraph, SlicedEll
+from repro_torch.core.graph import DataGraph, SlicedEll, flat_slots
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 
@@ -43,13 +43,15 @@ def graph_from_arrays(arrays: dict, meta: dict, device=None) -> DataGraph:
     device = resolve_device(device)
     up = lambda a: torch.from_numpy(np.array(a)).to(device)   # a writable copy
     widths = tuple(int(w) for w in meta["widths"])
-    blocks = {f: tuple(up(arrays[f"{f}.{b}"]) for b in range(len(widths)))
-              for f in _BLOCKS}
+    starts = tuple(int(s) for s in meta["starts"])
+    blocks = [[arrays[f"{f}.{b}"] for b in range(len(widths))]
+              for f in _BLOCKS]
     ell = SlicedEll(
-        widths=widths, starts=tuple(int(s) for s in meta["starts"]),
-        n_rows=int(meta["n_vertices"]), max_deg=int(meta["max_deg"]),
-        pad_edge=int(meta["pad_edge"]), perm=up(arrays["perm"]),
-        inv_perm=up(arrays["inv_perm"]), **blocks)
+        widths=widths, starts=starts, n_rows=int(meta["n_vertices"]),
+        max_deg=int(meta["max_deg"]), pad_edge=int(meta["pad_edge"]),
+        slots=flat_slots(blocks, starts, widths, int(meta["pad_edge"]),
+                         device),
+        perm=up(arrays["perm"]), inv_perm=up(arrays["inv_perm"]))
     graph = DataGraph(
         n_vertices=int(meta["n_vertices"]), n_edges=int(meta["n_edges"]),
         max_deg=int(meta["max_deg"]), ell=ell, degree=up(arrays["degree"]),

@@ -440,7 +440,10 @@ def test_update_keeps_tf32_off_and_restores_the_setting(monkeypatch):
 
 
 def test_builders_name_the_ported_apps():
-    assert BUILDERS == {"pagerank": pagerank.build, "als": als.build}
+    from repro_torch.apps import cc, coem, lbp
+    assert BUILDERS == {"pagerank": pagerank.build, "als": als.build,
+                        "cc": cc.build, "coem": coem.build,
+                        "lbp": lbp.build}
 
 
 def test_netflix_example_runs_on_cpu():

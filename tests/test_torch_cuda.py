@@ -672,3 +672,124 @@ def test_gpu_decode_equals_cpu_decode(cuda, monkeypatch):
     assert wa.window_attention.launches == before + 4 * cfg.n_layers
     torch.testing.assert_close(gst.cache_k.cpu(), cst.cache_k, rtol=1e-4,
                                atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# The schedulers slice: window launches, CC / PageRank / CoEM on the card
+# ----------------------------------------------------------------------
+
+# scheduler -> options of the engine-level card runs
+SCHED_CASES = {
+    "chromatic": {},
+    "bsp": {},
+    "priority": {"k_select": 64},
+    "priority_fifo": {"k_select": 64, "fifo": True},
+    "locking": {"max_pending": 64},
+}
+
+
+def _sched(name):
+    return name.split("_")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", [1, 32])
+@pytest.mark.parametrize("width", [2, 8, 64])
+def test_window_launch_matches_plain_version(cuda, width, feat):
+    """``ell_spmv_batched`` at a window's ``[B, W]`` shape, with rows
+    narrower than W padded by zero-weight slots (as the batch dispatch
+    gathers them), bitwise the plain version; the padded slots add
+    exactly +0.0, so the result equals the same rows at their own
+    width."""
+    gen = torch.Generator(device=cuda).manual_seed(width * 100 + feat)
+    b, n_src = 4096, 50_000
+    real_w = torch.randint(1, width + 1, (b,), generator=gen, device=cuda)
+    real = torch.arange(width, device=cuda)[None, :] < real_w[:, None]
+    nbrs = torch.where(real, torch.randint(0, n_src, (b, width), generator=gen,
+                                           device=cuda, dtype=torch.int32), 0)
+    w = torch.where(real, torch.rand((b, width), generator=gen, device=cuda),
+                    0.0)
+    x = torch.rand((n_src, feat), generator=gen, device=cuda)
+    mask = torch.rand(b, generator=gen, device=cuda) < 0.8
+    y = port.ell_spmv_batched(nbrs.int(), w, x, mask)
+    assert torch.equal(y, port.ell_spmv_plain(nbrs.int(), w, x, mask))
+    wide = port.ell_spmv_batched(
+        torch.nn.functional.pad(nbrs.int(), (0, 5)),
+        torch.nn.functional.pad(w, (0, 5)), x, mask)
+    assert torch.equal(wide, y)
+
+
+def _cc_graph():
+    from repro_torch.apps import cc
+    edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
+    return cc.build(edges, 2000, device="cpu"), edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCHED_CASES) + ["locking_full"])
+def test_gpu_cc_equals_cpu_cc_bitwise(cuda, name):
+    from repro_torch.apps import cc
+    from repro_torch.core.update import Consistency, UpdateFn
+    (g, upd, _), edges = _cc_graph()
+    if name == "locking_full":
+        upd = UpdateFn(upd.fn, Consistency.FULL, name="cc")
+    opts = SCHED_CASES.get(name, SCHED_CASES["locking"])
+    cpu = api.run(g, upd, scheduler=_sched(name), device="cpu", **opts)
+    gpu = api.run(g, upd, scheduler=_sched(name), device=cuda, **opts)
+    assert torch.equal(gpu.vertex_data["label"].cpu(), cpu.vertex_data["label"])
+    assert (gpu.superstep, gpu.n_updates) == (cpu.superstep, cpu.n_updates)
+    assert not gpu.active_any
+    np.testing.assert_array_equal(cpu.vertex_data["label"].numpy(),
+                                  cc.reference_components(edges, 2000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCHED_CASES))
+def test_gpu_pagerank_schedulers_equal_cpu_bitwise(cuda, name):
+    """Each engine on the card equals itself on the CPU, and its four
+    launch shapes and arms agree bitwise on the card."""
+    edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
+    g, upd, syncs = pagerank.build(edges, 2000, eps=1e-4, device="cpu")
+    opts = dict(SCHED_CASES[name], num_supersteps=40)
+    cpu = api.run(g, upd, syncs=syncs, scheduler=_sched(name), device="cpu",
+                  **opts)
+    runs = []
+    for dispatch in ("bucket", "batch"):
+        for use_kernel in (True, False):
+            before = port.ell_spmv.launches
+            runs.append(api.run(g, upd, syncs=syncs, scheduler=_sched(name),
+                                device=cuda, dispatch=dispatch,
+                                use_kernel=use_kernel, **opts))
+            assert port.ell_spmv.launches > before
+    for gpu in runs:
+        assert torch.equal(gpu.vertex_data["rank"].cpu(),
+                           cpu.vertex_data["rank"])
+        assert (gpu.superstep, gpu.n_updates) == (cpu.superstep,
+                                                  cpu.n_updates)
+        assert torch.equal(gpu.state.active.cpu(), cpu.state.active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["chromatic", "priority", "locking"])
+def test_gpu_coem_kernel_arm_equals_dense_arm(cuda, scheduler):
+    """CoEM at F = 3 types: the kernel arm equals the dense arm bitwise
+    on the card under both launch shapes; the card is within 1e-6 of
+    the CPU (the combine's type sum may reduce in another order)."""
+    from repro_torch.apps import coem
+    prob = coem.synthetic_ner(300, 120, 3, mean_deg=8, seed_frac=0.15,
+                              seed=1, device="cpu")
+    g, upd, syncs = coem.build(prob, eps=1e-4)
+    opts = ({} if scheduler == "chromatic" else
+            {"k_select": 32} if scheduler == "priority" else
+            {"max_pending": 32})
+    opts["num_supersteps"] = 30
+    cpu = api.run(g, upd, syncs=syncs, scheduler=scheduler, device="cpu",
+                  **opts)
+    outs = [api.run(g, upd, syncs=syncs, scheduler=scheduler, device=cuda,
+                    dispatch=d, use_kernel=k, **opts)
+            for d in ("bucket", "batch") for k in (True, False)]
+    for gpu in outs:
+        assert torch.equal(gpu.vertex_data["p"], outs[0].vertex_data["p"])
+        assert gpu.n_updates == outs[0].n_updates
+    torch.testing.assert_close(outs[0].vertex_data["p"].cpu(),
+                               cpu.vertex_data["p"], rtol=0, atol=1e-6)

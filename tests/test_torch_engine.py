@@ -285,9 +285,11 @@ def test_route_and_dense_fold_match_reference():
 def test_unported_options_raise(monkeypatch):
     n, edges_fn, eps = ENGINE_GRAPHS["quickstart"]
     g, upd, syncs = pagerank.build(edges_fn(), n, eps=eps, device="cpu")
+    with pytest.raises(ValueError, match="not registered"):
+        api.run(g, upd, scheduler="sequential", device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        api.run(g, upd, scheduler="priority", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
+        api.run(g, upd, trace=True, device="cpu")
+    with pytest.raises(ValueError, match="not options of scheduler"):
         api.run(g, upd, k_select=8, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

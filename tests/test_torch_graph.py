@@ -85,6 +85,43 @@ def test_rows_and_activation_match_reference(name):
                                           jnp.asarray(sel))))
 
 
+@pytest.mark.parametrize("name", ["random60", "zipf2000"])
+def test_flat_and_bucket_gathers_match_reference(name, monkeypatch):
+    """A window-sized batch gathers through the flat stores, a large one
+    bucket by bucket: both give the reference's rows at every scope
+    width, with rows wider than the width reading as empty and the
+    out-of-range position as padding; the bucket blocks are aligned
+    views of the flat stores."""
+    n, edges, ref, port = _both(name, True)
+    ell = port.ell
+    rng = np.random.default_rng(2)
+    ids = rng.choice(n, size=min(n, 200), replace=False).astype(np.int32)
+    pos = torch.cat([ell.inv_perm[torch.from_numpy(ids).long()],
+                     torch.tensor([ell.total_rows], dtype=torch.int32)])
+    for width in (None,) + ell.scope_widths + (1, 5):
+        want = ref.ell.rows(jnp.asarray(ids), width=width)
+        d = ell.max_deg if width is None else ell.snap_width(width)
+        flat = ell._flat_rows(pos, d)
+        bucket = ell._bucket_rows(pos, d)
+        for f_, b_, w_ in zip(flat, bucket, want):
+            assert torch.equal(f_, b_)
+            np.testing.assert_array_equal(f_[:-1].numpy(), np.asarray(w_))
+        assert not flat.nbr_mask[-1].any() and not flat.is_src[-1].any()
+        assert (flat.edge_ids[-1] == ell.pad_edge).all()
+        assert (flat.nbrs[-1] == 0).all()
+    monkeypatch.setattr(graph, "FLAT_GATHER_SLOTS", 0)
+    got = ell.rows(torch.from_numpy(ids), width=8)
+    for g_, w_ in zip(got, ref.ell.rows(jnp.asarray(ids), width=8)):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+    for blocks, flat in zip((ell.nbrs, ell.nbr_mask, ell.edge_ids,
+                             ell.is_src), ell.slots):
+        for blk in blocks:
+            off = blk.data_ptr() - flat.data_ptr()
+            assert blk.is_contiguous()
+            assert blk.untyped_storage().data_ptr() == flat.data_ptr()
+            assert off % (graph.SLOT_ALIGN * flat.element_size()) == 0
+
+
 def test_interop_carries_reference_graph_across():
     n, edges = GRAPHS["zipf300"]()
     ref, _, _ = ref_pagerank.build(edges, n)

@@ -1,0 +1,45 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the reference package, so both run on
+a GPU host that has neither.  Checked by parsing, not importing."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported(tree):
+    """Top-level package names of every import in a module, including
+    imports inside functions."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and isinstance(node.func,
+                                                        ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_neither_jax_nor_the_reference(path):
+    bad = [(line, name) for line, name in
+           _imported(ast.parse(path.read_text(), str(path)))
+           if name in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_guard_sees_every_import_form():
+    src = ("import jax.numpy as jnp\nfrom repro.core import exec\n"
+           "def f():\n    import repro\n    from jax import lax\n"
+           "importlib.import_module('repro.apps')\nfrom . import x\n"
+           "import repro_torch\n")
+    names = [n for _, n in sorted(_imported(ast.parse(src)))]
+    assert names == ["jax", "repro", "repro", "jax", "repro", "repro_torch"]
