@@ -122,7 +122,39 @@ Phases (any failure exits non-zero and prints no result):
                  unary terms', the GMM sync against float64; each run's
                  supersteps, updates, ms per superstep, peak memory and
                  one fresh superstep's layers and idle share;
-14. report     — a ``{"kernels": [...]}`` line, then the contract line
+14. split kernels — ``segment_combine`` (B2) against its plain version,
+                 bitwise, at the split path's full-size shapes: the
+                 owner combine of the Zipf graph split at the default
+                 w_cap (64) and at 16, F = 1 and 32; the window chunk
+                 combine at ``[32768 * s, F]``; MapReduce ALS's reduce
+                 of phase 7's 10,047,239 ratings (``[Ne, 400]`` and
+                 ``[Ne, 20]`` into 17,770 and 48,019 segments); stress
+                 cases (empty segments, a segment of 5,000 rows, sentinel
+                 rows, -0.0, F = 7, bf16), timed beside the plain
+                 version, ``index_add_`` and the bound; B1's split sweep
+                 and its windows at W <= w_cap beside phase 11's;
+15. split and app parity — the 2k Zipf graph split at w_cap = 8:
+                 PageRank GPU == CPU in every engine x {bucket, batch} x
+                 {kernel, dense}, CC split == unsplit == union-find, an
+                 integer aggregator split == unsplit; Gibbs keys and
+                 uniforms GPU == CPU == a numpy threefry, bitwise, and
+                 the 4-cycle's exact marginals within 0.05; BPTF and the
+                 MapReduce baselines GPU against CPU;
+16. split and apps main path — full size, the launch counts set to 0
+                 just before each run and read just after: split
+                 PageRank (w_cap 64 and 16) to convergence with phase
+                 4's float64 checks; split CC under chromatic and
+                 locking, equal to union-find; Gibbs on the CoSeg grid
+                 (50 sweeps), the last sweep's keys and uniforms against
+                 a numpy threefry bitwise and its spins against float64
+                 p where ``|u - p| > 1e-6``; BPTF on phase 7's ratings
+                 (T = 64, 10 supersteps), its RMSE gate, time table and
+                 1,000 movies' normal equations against float64;
+                 MapReduce ALS (10 iterations) against chromatic ALS
+                 (movies first) and MapReduce CoEM against phase 13's
+                 chromatic CoEM; ms per superstep or iteration, peak
+                 memory and one superstep's layers and idle share each;
+17. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -670,7 +702,6 @@ def phase_main(torch, ctx):
     import numpy as np
 
     from repro_torch import api
-    from repro_torch.apps import pagerank
     from repro_torch.kernels.ell_spmv import ell_spmv
     g, upd, syncs = ctx["graph"], ctx["update"], ctx["syncs"]
     torch.cuda.synchronize()
@@ -689,30 +720,9 @@ def phase_main(torch, ctx):
         f"ell_spmv launches {launches} "
         f"({launches / max(res.superstep, 1):.0f}/superstep), "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    if res.active_any:
-        raise AssertionError("PageRank did not converge within 100 supersteps")
     if launches <= 0:
         raise AssertionError("the main path never launched ell_spmv")
-
-    r = res.vertex_data["rank"].cpu().numpy().astype(np.float64)
-    wr = pagerank.sparse_matvec(ctx["edges"], g.n_vertices, r)
-    resid = float(np.abs(r - (pagerank.ALPHA
-                              + (1 - pagerank.ALPHA) * wr)).max())
-    top2 = float(res.globals["top2"][0])
-    second = float(np.partition(r, -2)[-2])
-    total = float(res.globals["total_rank"])
-    rel = abs(total - r.sum()) / r.sum()
-    log(f"full size: fixed-point residual {resid:.3e} (limit {100 * EPS:.0e})"
-        f", top2 {top2} vs host {second}, total_rank {total} vs float64 "
-        f"{r.sum():.6f} (rel {rel:.2e})")
-    if not np.isfinite(r).all() or r.shape != (g.n_vertices,):
-        raise AssertionError("ranks are not finite or have the wrong shape")
-    if resid >= 100 * EPS:
-        raise AssertionError(f"fixed-point residual {resid} >= {100 * EPS}")
-    if top2 != second:
-        raise AssertionError(f"top2 sync {top2} != host {second}")
-    if rel >= 1e-4:
-        raise AssertionError(f"total_rank off by {rel} relative")
+    check_pagerank(np, res, ctx["edges"], "full size")
 
     top = report_superstep(torch, res.engine, pagerank_layers())
     spmv = [(t, c) for t, name, c in top if "ell_spmv" in name]
@@ -720,6 +730,36 @@ def phase_main(torch, ctx):
         log(f"ell_spmv in the profiled superstep: "
             f"{sum(t for t, _ in spmv) / 1e3:.3f} ms device time, "
             f"{sum(c for _, c in spmv)} launches")
+
+
+def check_pagerank(np, res, edges, label):
+    """A converged PageRank run against float64 on the host: the fixed
+    point's residual, the top-2 sync against the host's second-largest
+    rank, the total-rank sync against the float64 sum."""
+    from repro_torch.apps import pagerank
+    if res.active_any:
+        raise AssertionError(f"{label}: PageRank did not converge within "
+                             "100 supersteps")
+    r = res.vertex_data["rank"].cpu().numpy().astype(np.float64)
+    n = len(r)
+    wr = pagerank.sparse_matvec(edges, n, r)
+    resid = float(np.abs(r - (pagerank.ALPHA
+                              + (1 - pagerank.ALPHA) * wr)).max())
+    top2 = float(res.globals["top2"][0])
+    second = float(np.partition(r, -2)[-2])
+    total = float(res.globals["total_rank"])
+    rel = abs(total - r.sum()) / r.sum()
+    log(f"{label}: fixed-point residual {resid:.3e} (limit {100 * EPS:.0e})"
+        f", top2 {top2} vs host {second}, total_rank {total} vs float64 "
+        f"{r.sum():.6f} (rel {rel:.2e})")
+    if not np.isfinite(r).all() or r.ndim != 1:
+        raise AssertionError("ranks are not finite or have the wrong shape")
+    if resid >= 100 * EPS:
+        raise AssertionError(f"fixed-point residual {resid} >= {100 * EPS}")
+    if top2 != second:
+        raise AssertionError(f"top2 sync {top2} != host {second}")
+    if rel >= 1e-4:
+        raise AssertionError(f"total_rank off by {rel} relative")
 
 
 def report_superstep(torch, engine, layers, priority=None):
@@ -1189,7 +1229,12 @@ def attention_case(torch, label, b, h, hkv, w, dh, dtype, lens, flush, gen,
 
 def phase_attention(torch, ctx):
     """window_attention vs its plain version at the serving shapes."""
+    import dataclasses
+
     from repro_torch import configs
+    # phase 7's problem waits on the host for phases 14-16
+    prob = ctx["als_problem"]
+    ctx["als_host"] = dataclasses.replace(prob, graph=prob.graph.to("cpu"))
     release(torch, ctx, "graph", "update", "syncs", "edges", "als_problem")
     cfg = configs.get(SERVE_ARCH)
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
@@ -1611,16 +1656,24 @@ def setup_schedulers(torch, ctx):
 def window_case(torch, label, ell, width, w_edge, x, gen, flush):
     """``ell_spmv_batched`` on a ``[WINDOW, W]`` window gathered at scope
     width ``W`` from rows drawn uniformly among the buckets up to W (as a
-    priority window snapped to W holds them), against its plain version
-    (bitwise), one ``torch.sparse.mm`` on its CSR and its bound."""
+    priority window snapped to W holds them; on a split graph, among the
+    owners of one virtual row), against its plain version (bitwise), one
+    ``torch.sparse.mm`` on its CSR and its bound."""
     from repro_torch.kernels.ell_spmv import ell_spmv_batched, ell_spmv_plain
     dev = x.device
     b = ell.widths.index(width)
-    pool = ell.perm[:ell.starts[b + 1]]      # bucketed positions 0..end
-    pick = torch.randperm(pool.numel(), generator=gen, device=dev)[:WINDOW]
-    if not bool((pick >= ell.starts[b]).any()):
-        pick[0] = ell.starts[b]            # a row of width W's own bucket
-    ids = pool[pick]
+    pos = torch.arange(ell.starts[b + 1], device=dev)   # bucketed positions
+    pool = ell.perm[pos].long()
+    if ell.is_split:
+        pool = ell.owner_of_vrow[pool].long()
+        off = ell.vrow_offset
+        single = (off[pool + 1] - off[pool]) == 1
+        pos, pool = pos[single], pool[single]
+    pick = torch.randperm(pos.numel(), generator=gen, device=dev)[:WINDOW]
+    if not bool((pos[pick] >= ell.starts[b]).any()):
+        # a row of width W's own bucket
+        pick[0] = int(torch.nonzero(pos >= ell.starts[b])[0])
+    ids = pool[pick].to(torch.int32)
     every = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
     if ell.window_bucket(ids, every) != b:
         raise AssertionError(f"{label}: the window does not need width "
@@ -1655,6 +1708,53 @@ def window_case(torch, label, ell, width, w_edge, x, gen, flush):
                 library_ms=lib_ms, bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
+def sweep_case(torch, label, ell, w_edge, x, gen, flush):
+    """``ell_spmv_bucketed`` over every bucket of ``ell`` as one launch
+    (weights ``w_edge`` by edge id, 80 % of rows unmasked) against its
+    plain version (bitwise), one ``torch.sparse.mm`` on its CSR and its
+    bound."""
+    from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_bucketed,
+                                              ell_spmv_plain)
+    dev, feat = x.device, x.shape[1]
+    w_blocks = [torch.where(ell.nbr_mask[b], w_edge[ell.edge_ids[b].long()],
+                            0.0).contiguous() for b in range(ell.n_buckets)]
+    masks = [torch.rand(nb.shape[0], generator=gen, device=dev) < 0.8
+             for nb in ell.nbrs]
+    before = ell_spmv.launches
+    y = ell_spmv_bucketed(ell.nbrs, w_blocks, x, masks)
+    launched = ell_spmv.launches - before
+    yp = torch.cat([ell_spmv_plain(nb, w, x, m)
+                    for nb, w, m in zip(ell.nbrs, w_blocks, masks)])
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, y, yp)
+    err = float((y - yp).abs().max())
+    if mism or launched != 1:
+        raise AssertionError(f"{label}: {mism} f32 elements differ, "
+                             f"{launched} launches")
+    blocks = list(zip(ell.nbrs, w_blocks, ell.nbr_mask, masks))
+    csr = csr_of(torch, blocks, x.shape[0])
+    lib_err = float((torch.sparse.mm(csr, x) - y).abs().max())
+    ms, call_ms = time_cuda(
+        torch, lambda: ell_spmv_bucketed(ell.nbrs, w_blocks, x, masks), 20,
+        flush)
+    plain_ms, _ = time_cuda(torch, lambda: [
+        ell_spmv_plain(nb, w, x, m)
+        for nb, w, m in zip(ell.nbrs, w_blocks, masks)], 2, flush)
+    lib_ms, _ = time_cuda(torch, lambda: torch.sparse.mm(csr, x), 20, flush)
+    touched = int(torch.unique(torch.cat(
+        [nb[m] for nb, m in zip(ell.nbrs, ell.nbr_mask)])).numel())
+    bms, by = bound_ms(ell.total_rows, ell.padded_slots, touched, feat, 4,
+                       ell.total_rows)
+    log(f"{label}, one launch [{ell.total_rows} rows, {ell.padded_slots} "
+        f"slots, {touched} rows of x]: kernel {ms:.4f} ms ({call_ms:.4f} "
+        f"with the host), plain {plain_ms:.4f}, library {lib_ms:.4f} (max "
+        f"|diff| {lib_err:.2e}), bound {bms:.4f} ({by}; kernel / bound "
+        f"{ms / bms:.2f}), mismatches 0, launches 1")
+    return dict(label=label, rows=ell.total_rows, width=None, feat=feat,
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
 def phase_sched_kernels(torch, ctx):
     """B1 at this slice's launch shapes: the ``[WINDOW, W]`` window of
     every scope width of the Zipf graph at F = 1 and of the CoEM graph at
@@ -1662,8 +1762,6 @@ def phase_sched_kernels(torch, ctx):
     import numpy as np
 
     from repro_torch.apps import pagerank
-    from repro_torch.kernels.ell_spmv import (ell_spmv, ell_spmv_bucketed,
-                                              ell_spmv_plain)
     dev = ctx["dev"]
     gen = torch.Generator(device=dev).manual_seed(11)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -1683,45 +1781,8 @@ def phase_sched_kernels(torch, ctx):
         cases.append(window_case(torch, f"CoEM window F={NER_TYPES} "
                                  f"W={width}", cg.ell, width, count, x32, gen,
                                  flush))
-    ell = cg.ell
-    w_blocks = [torch.where(ell.nbr_mask[b], count[ell.edge_ids[b].long()],
-                            0.0).contiguous() for b in range(ell.n_buckets)]
-    masks = [torch.rand(nb.shape[0], generator=gen, device=dev) < 0.8
-             for nb in ell.nbrs]
-    before = ell_spmv.launches
-    y = ell_spmv_bucketed(ell.nbrs, w_blocks, x32, masks)
-    launched = ell_spmv.launches - before
-    yp = torch.cat([ell_spmv_plain(nb, w, x32, m)
-                    for nb, w, m in zip(ell.nbrs, w_blocks, masks)])
-    torch.cuda.synchronize()
-    mism = bits_differ(torch, y, yp)
-    err = float((y - yp).abs().max())
-    if mism or launched != 1:
-        raise AssertionError(f"CoEM sweep: {mism} f32 elements differ, "
-                             f"{launched} launches")
-    blocks = list(zip(ell.nbrs, w_blocks, ell.nbr_mask, masks))
-    csr = csr_of(torch, blocks, cg.n_vertices)
-    lib_err = float((torch.sparse.mm(csr, x32) - y).abs().max())
-    ms, call_ms = time_cuda(
-        torch, lambda: ell_spmv_bucketed(ell.nbrs, w_blocks, x32, masks), 20,
-        flush)
-    plain_ms, _ = time_cuda(torch, lambda: [
-        ell_spmv_plain(nb, w, x32, m)
-        for nb, w, m in zip(ell.nbrs, w_blocks, masks)], 2, flush)
-    lib_ms, _ = time_cuda(torch, lambda: torch.sparse.mm(csr, x32), 20, flush)
-    touched = int(torch.unique(torch.cat(
-        [nb[m] for nb, m in zip(ell.nbrs, ell.nbr_mask)])).numel())
-    bms, by = bound_ms(ell.total_rows, ell.padded_slots, touched, NER_TYPES,
-                       4, ell.total_rows)
-    log(f"CoEM sweep F={NER_TYPES}, one launch [{ell.total_rows} rows, "
-        f"{ell.padded_slots} slots, {touched} rows of x]: kernel {ms:.4f} ms "
-        f"({call_ms:.4f} with the host), plain {plain_ms:.4f}, library "
-        f"{lib_ms:.4f} (max |diff| {lib_err:.2e}), bound {bms:.4f} ({by}; "
-        f"kernel / bound {ms / bms:.2f}), mismatches 0, launches 1")
-    cases.append(dict(label="CoEM sweep", rows=ell.total_rows, width=None,
-                      feat=NER_TYPES, ms=ms, call_ms=call_ms,
-                      plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                      bound_by=by, max_abs_err=err))
+    cases.append(sweep_case(torch, f"CoEM sweep F={NER_TYPES}", cg.ell,
+                            count, x32, gen, flush))
     ctx["sched_kernel_cases"] = cases
     largest = int(torch.bincount(g.colors).max())
     for label, ell, sizes in (
@@ -2043,6 +2104,7 @@ def phase_sched_main(torch, ctx):
     truth = cc.reference_components(ctx["zipf_edges"], FULL_N)
     log(f"union-find on the host: {len(np.unique(truth))} components, "
         f"{time.perf_counter() - t0:.1f} s")
+    ctx["cc_truth"] = truth
     for label, sched, opts in sched_cases(WINDOW):
         if label == "priority fifo":
             continue
@@ -2091,6 +2153,10 @@ def phase_sched_main(torch, ctx):
                                  f"beat the seeds' {seeds_only}")
         if sched == "chromatic" and res.active_any:
             raise AssertionError("CoEM chromatic did not converge")
+        if sched == "chromatic":       # phase 16's MapReduce CoEM runs as long
+            ctx["coem_chromatic"] = dict(
+                supersteps=res.superstep, accuracy=acc,
+                ms_per_superstep=ctx["sched_runs"][-1]["ms_per_superstep"])
         report_superstep(torch, res.engine, layers)
         phases.clear()
     # the dense arm at the window's size: bitwise the kernel arm (a
@@ -2154,6 +2220,765 @@ def phase_sched_main(torch, ctx):
         report_superstep(torch, res.engine, layers, priority=prio)
 
 
+# ----------------------------------------------------------------------
+# Phases 14-16: hub splitting, Gibbs, BPTF and the MapReduce baselines
+# ----------------------------------------------------------------------
+
+# the split Zipf graphs: hub_split=True (default_w_cap: 64) and w_cap=16
+SPLIT_CAPS = (None, 16)
+SPLIT_PARITY_CAP = 8           # phase 15's 2k graph
+# Gibbs: Ising on the CoSeg grid at the reference test's beta and field
+GIBBS_BETA, GIBBS_FIELD = 0.35, 0.2
+GIBBS_SWEEPS, GIBBS_BURN_IN = 50, 10
+GIBBS_EXACT_SWEEPS = 4000      # the reference test's budget on the 4-cycle
+# a draw is compared where the float32 sigmoid cannot flip it: jax's and
+# torch's round a few inputs in a million one ulp (6e-8) apart
+GIBBS_CLEAR = 1e-6
+# BPTF at phase 7's ratings: T = 64 time bins (the paper gives none);
+# noise 0.02 keeps the reference test's noise-to-signal ratio (0.05 at
+# d = 4, where a rating's RMS is ~0.5, is 0.02 at d = 20's ~0.22); lam
+# 0.002 keeps lam * d = 0.04 << 1 (see ALS_LAM)
+BPTF_TIMES, BPTF_NOISE, BPTF_LAM = 64, 0.02, 0.002
+BPTF_SUPERSTEPS = 10
+BPTF_CHECKED_MOVIES = 1000
+MR_ITERS = 10                  # MapReduce ALS: phase 7's 10 sweeps
+MR_RMSE_TOL = 1e-4             # against chromatic ALS, movies first
+MR_COEM_ACC_TOL = 0.05         # the reference test's gate
+
+
+def np_threefry2x32(np, k1, k2, x1, x2):
+    """Threefry-2x32 (20 rounds, Salmon et al. 2011) in numpy uint32,
+    which wraps on overflow: the host's own copy of the hash JAX keys
+    its random numbers with, to check the port's torch version."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    u = np.uint32
+    k1, k2, x1, x2 = (np.asarray(a, dtype=u) for a in (k1, k2, x1, x2))
+    ks = (k1, k2, k1 ^ k2 ^ u(0x1BD11BDA))
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x1 = x1 + x2
+            x2 = ((x2 << u(r)) | (x2 >> u(32 - r))) ^ x1
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + u(i + 1)
+    return x1, x2
+
+
+def np_split_uniform(np, keys):
+    """``jax.random.split`` (partitionable: counters (0, 0) and (0, 1))
+    of ``[n, 2]`` uint32 keys and the float32 ``uniform`` of the second
+    key: ``(new keys, uniforms)``."""
+    z = np.zeros(len(keys), np.uint32)
+    a1, a2 = np_threefry2x32(np, keys[:, 0], keys[:, 1], z, z)
+    b1, b2 = np_threefry2x32(np, keys[:, 0], keys[:, 1], z, z + 1)
+    w1, w2 = np_threefry2x32(np, b1, b2, z, z)
+    bits = ((w1 ^ w2) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return (np.stack([a1, a2], 1),
+            bits.view(np.float32) - np.float32(1.0))
+
+
+def segment_case(torch, label, y, offsets, flush, reps=20, plain_reps=2):
+    """``segment_sum_csr`` on ``(y, offsets)`` against its plain version
+    (bitwise), timed beside it, ``index_add_`` of the same rows (the
+    library yardstick, timed only) and the bound: the bytes it must move
+    (y's rows inside the segments, the offsets, the output) over the HBM
+    rate, against one add an input element over the float32 rate."""
+    from repro_torch.kernels.segment_combine import (segment_sum_csr,
+                                                     segment_sum_csr_plain)
+    out = segment_sum_csr(y, offsets)
+    plain = segment_sum_csr_plain(y, offsets)
+    torch.cuda.synchronize()
+    mism = bits_differ(torch, out, plain)
+    err = float((out.float() - plain.float()).abs().max()) if out.numel() \
+        else 0.0
+    if mism:
+        raise AssertionError(f"{label}: {mism} elements differ from the "
+                             f"plain version (max {err})")
+    n_rows = offsets.numel() - 1
+    counts = (offsets[1:] - offsets[:-1]).long()
+    used = int(offsets[-1])
+    seg = torch.repeat_interleave(torch.arange(n_rows, device=y.device),
+                                  counts)
+    head = y[:used]
+    lib = lambda: torch.zeros(out.shape, dtype=y.dtype,
+                              device=y.device).index_add_(0, seg, head)
+    lib_err = float((lib().float() - out.float()).abs().max()) \
+        if out.numel() else 0.0
+    ms, call_ms = time_cuda(torch, lambda: segment_sum_csr(y, offsets), reps,
+                            flush)
+    plain_ms, _ = time_cuda(torch, lambda: segment_sum_csr_plain(y, offsets),
+                            plain_reps, flush)
+    lib_ms, _ = time_cuda(torch, lib, reps, flush)
+    feat = out[0].numel() if out.numel() else 0
+    elt = y.element_size()
+    nbytes = (used * feat * elt + offsets.numel() * offsets.element_size()
+              + n_rows * feat * elt)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, used * feat / F32_FLOPS
+    bms = 1e3 * max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"{label}: y [{y.shape[0]}, {feat}] into {n_rows} segments (longest "
+        f"{int(counts.max()) if n_rows else 0}): kernel {ms:.4f} ms "
+        f"({call_ms:.4f} with the host), plain {plain_ms:.4f}, index_add_ "
+        f"{lib_ms:.4f} (max |diff| {lib_err:.2e}), bound {bms:.4f} ({by}; "
+        f"kernel / bound {ms / bms:.2f}), mismatches 0")
+    return dict(label=label, rows=n_rows, feat=feat, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, max_abs_err=err)
+
+
+def segment_stress(torch, dev, gen):
+    """The kernel's edge cases against its plain version, bitwise:
+    empty segments, a segment longer than a block, sentinel rows past
+    the last segment, -0.0 inputs (a segment of them sums to +0.0),
+    feature counts that are not a multiple of 4, bf16 input."""
+    from repro_torch.kernels.segment_combine import (segment_sum_csr,
+                                                     segment_sum_csr_plain)
+    cases = []
+    for label, n_rows, feat, longest, tail, empty, dtype in (
+            ("empty segments", 4000, (4,), 5, 0, True, torch.float32),
+            ("a segment of 5,000 rows", 300, (4,), 5000, 0, False,
+             torch.float32),
+            ("sentinel tail", 3000, (32,), 5, 1000, False, torch.float32),
+            ("-0.0 inputs", 3000, (5,), 5, 0, False, torch.float32),
+            ("F = 7", 3000, (7,), 5, 0, False, torch.float32),
+            ("F = 1", 100_000, (1,), 5, 0, False, torch.float32),
+            ("bf16, F = 20", 3000, (20,), 5, 17, False, torch.bfloat16)):
+        counts = torch.randint(0, 6, (n_rows,), generator=gen, device=dev)
+        if empty:
+            counts[::2] = 0
+        counts[n_rows // 2] = longest
+        offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+        offsets[1:] = torch.cumsum(counts, 0)
+        y = torch.randn((int(offsets[-1]) + tail,) + feat, generator=gen,
+                        device=dev)
+        if label == "-0.0 inputs":
+            y[torch.rand(y.shape, generator=gen, device=dev) < 0.5] = -0.0
+            y[int(offsets[1]):int(offsets[2])] = -0.0
+        y = y.to(dtype)
+        got = segment_sum_csr(y, offsets)
+        want = segment_sum_csr_plain(y, offsets)
+        torch.cuda.synchronize()
+        mism = bits_differ(torch, got, want)
+        if mism:
+            raise AssertionError(f"segment stress {label}: {mism} elements "
+                                 "differ from the plain version")
+        if label == "-0.0 inputs" and bool(torch.signbit(got[1]).any()):
+            raise AssertionError("a segment of -0.0 did not sum to +0.0")
+        cases.append(label)
+    log(f"segment_combine stress cases, bitwise against plain: {cases}")
+
+
+def setup_split(torch, ctx):
+    """Phases 14-16's problems: phase 4's Zipf edges split twice (with
+    phase 4's colors), Ising on the CoSeg grid, BPTF on phase 7's rating
+    pairs, and phase 7's ALS problem back on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.apps import bptf, gibbs, pagerank
+    from repro_torch.core.graph import grid_edges_3d
+    dev = ctx["dev"]
+    split = {}
+    for cap in SPLIT_CAPS:
+        t0 = time.perf_counter()
+        g, upd, syncs = pagerank.build(ctx["zipf_edges"], FULL_N, eps=EPS,
+                                       hub_split=True, w_cap=cap,
+                                       colors=ctx["zipf_colors"], device=dev)
+        torch.cuda.synchronize()
+        ell = g.ell
+        nch = (ell.vrow_offset[1:] - ell.vrow_offset[:-1]).cpu().numpy()
+        label = f"w_cap={ell.w_cap}" + (" (default)" if cap is None else "")
+        log(f"split Zipf graph, {label}: {ell.n_virtual} virtual rows, "
+            f"{int((nch > 1).sum())} hubs, at most {ell.n_chunks_max} "
+            f"chunks, widths {ell.widths}, scope widths {ell.scope_widths}, "
+            f"{ell.padded_slots} sliced slots; host set-up "
+            f"{time.perf_counter() - t0:.1f} s")
+        split[label] = (g, upd, syncs)
+    ctx["split"] = split
+
+    t0 = time.perf_counter()
+    nx, ny, nz = COSEG_SHAPE
+    n, edges = grid_edges_3d(nx, ny, nz)
+    idx = np.arange(n)
+    parity = ((idx // (ny * nz) + (idx // nz) % ny + idx % nz) % 2).astype(
+        np.int32)
+    ising = gibbs.ising_problem(edges, n, GIBBS_BETA, GIBBS_FIELD, seed=0,
+                                colors=parity, device=dev)
+    torch.cuda.synchronize()
+    log(f"Ising on the CoSeg grid {COSEG_SHAPE}: {n} vertices, "
+        f"{ising.graph.n_edges} edges, {ising.graph.n_colors} colors (the "
+        f"grid's parity); host set-up {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    als_host = ctx["als_host"]
+    pairs = als_host.pairs
+    nu, nm, d = als_host.n_users, als_host.n_movies, als_host.d
+    rng = np.random.default_rng(1)
+    u = rng.normal(size=(nu, d)) / d ** 0.5
+    v = rng.normal(size=(nm, d)) / d ** 0.5
+    tt = 1.0 + 0.1 * rng.normal(size=(BPTF_TIMES, d))
+    ti = rng.integers(0, BPTF_TIMES, len(pairs))
+    ratings = np.empty(len(pairs), np.float32)
+    for s in range(0, len(pairs), 1 << 22):
+        p = pairs[s:s + (1 << 22)]
+        ratings[s:s + len(p)] = (
+            np.einsum("ed,ed->e", u[p[:, 0]] * tt[ti[s:s + len(p)]],
+                      v[p[:, 1]])
+            + BPTF_NOISE * rng.normal(size=len(p)))
+    w0 = rng.normal(size=(nu + nm + BPTF_TIMES, d)).astype(np.float32) * 0.1
+    prob = bptf.problem_from_triples(
+        nu, nm, BPTF_TIMES, d, pairs[:, 0], pairs[:, 1], ti, ratings, w0,
+        BPTF_NOISE, colors=bptf.tripartite_coloring(nu, nm, BPTF_TIMES),
+        device=dev)
+    torch.cuda.synchronize()
+    log(f"BPTF: {nu} users x {nm} movies x {BPTF_TIMES} time bins, d={d}, "
+        f"{prob.graph.n_edges} edges ({len(pairs)} ratings), max degree "
+        f"{prob.graph.max_deg}, {prob.graph.n_colors} colors; host set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    als_dev = dataclasses.replace(als_host, graph=als_host.graph.to(dev))
+    torch.cuda.synchronize()
+    log(f"phase 7's ALS problem back on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    ctx.update(ising=ising, bptf=prob, als_dev=als_dev)
+
+
+def phase_split_kernels(torch, ctx):
+    """B2 against its plain version at the main path's shapes, and B1's
+    split sweep and its windows at W <= w_cap."""
+    import numpy as np
+
+    from repro_torch.baselines import mapreduce as mr
+    dev = ctx["dev"]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    seg_cases, b1_cases = [], []
+    for label, (g, _, _) in ctx["split"].items():
+        ell = g.ell
+        for feat in (1, 32):
+            y = torch.rand((ell.n_virtual, feat), generator=gen, device=dev)
+            seg_cases.append(segment_case(
+                torch, f"owner combine {label} F={feat}", y, ell.vrow_offset,
+                flush))
+            s = ell.scope_widths[-1] // ell.w_cap
+            y = torch.rand((WINDOW * s, feat), generator=gen, device=dev)
+            offsets = torch.arange(WINDOW + 1, device=dev) * s
+            seg_cases.append(segment_case(
+                torch, f"window chunk combine {label} s={s} F={feat}", y,
+                offsets, flush))
+        del y
+        w_edge = g.edge_data["w"]
+        x1 = torch.rand((g.n_vertices, 1), generator=gen, device=dev) + 0.5
+        b1_cases.append(sweep_case(torch, f"split PageRank sweep {label} F=1",
+                                   ell, w_edge, x1, gen, flush))
+        for width in ell.widths:
+            b1_cases.append(window_case(
+                torch, f"split Zipf window {label} F=1 W={width}", ell, width,
+                w_edge, x1, gen, flush))
+    # MapReduce ALS's reduce over phase 7's ratings, from its initial
+    # factors: the movie job's [Ne, d*d] outer products and [Ne, d]
+    # rating-weighted factors, then the user job's
+    prob = ctx["als_dev"]
+    d = prob.d
+    w = prob.graph.vertex_data["w"]
+    w_users, w_movies = w[:prob.n_users], w[prob.n_users:]
+    for (shuffle, r), w_src, side in zip(mr.als_jobs(prob, dev),
+                                         (w_users, w_movies),
+                                         ("movies", "users")):
+        msg = w_src.index_select(0, shuffle.src)
+        outer = (msg[:, :, None] * msg[:, None, :]).reshape(-1, d * d)
+        seg_cases.append(segment_case(
+            torch, f"MapReduce ALS reduce A to {side}", outer,
+            shuffle.offsets, flush, reps=5))
+        del outer
+        seg_cases.append(segment_case(
+            torch, f"MapReduce ALS reduce b to {side}",
+            (msg * r[:, None]).contiguous(), shuffle.offsets, flush))
+        del msg
+    release(torch, ctx)
+    segment_stress(torch, dev, gen)
+    ctx["split_seg_cases"] = seg_cases
+    ctx["split_b1_cases"] = b1_cases
+    unsplit = {c["label"]: c for c in ctx.get("sched_kernel_cases", [])}
+    log("split B1 windows beside phase 11's unsplit ones (kernel ms): "
+        + ", ".join(f"W={c['width']} {c['ms']:.4f}" for c in b1_cases
+                    if c["width"]) + (f"; unsplit: " + ", ".join(
+                        f"W={c['width']} {c['ms']:.4f}"
+                        for c in unsplit.values()
+                        if c["label"].startswith("Zipf window"))
+                    if unsplit else ""))
+    ctx["launches"].setdefault("segment_combine", 0)
+
+
+def phase_split_parity(torch, ctx):
+    """Small graphs, GPU against CPU: split PageRank in every arm, CC
+    split == unsplit == union-find, an integer aggregator split ==
+    unsplit, Gibbs keys and uniforms and the 4-cycle's exact marginals,
+    BPTF and the MapReduce baselines."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.apps import als, bptf, cc, coem, gibbs, pagerank
+    from repro_torch.baselines import mapreduce as mr
+    from repro_torch.core.graph import DataGraph, grid_edges_3d, zipf_edges
+    from repro_torch.core.update import (Consistency, UpdateResult,
+                                         aggregator_update)
+    from repro_torch.kernels.segment_combine import segment_sum_csr
+    dev = ctx["dev"]
+    n = 2000
+    edges = zipf_edges(n, alpha=2.0, max_deg=64, seed=1)
+    g, upd, syncs = pagerank.build(edges, n, eps=EPS, w_cap=SPLIT_PARITY_CAP,
+                                   device="cpu")
+    arms = [(d, k) for d in ("bucket", "batch") for k in (True, False)]
+    before = segment_sum_csr.launches
+    for label, sched, opts in sched_cases(64):
+        if label == "priority fifo":
+            continue
+        cpu = api.run(g, upd, syncs=syncs, scheduler=sched, device="cpu",
+                      num_supersteps=PARITY_STEPS, **opts)
+        for dispatch, use_kernel in arms:
+            gpu = api.run(g, upd, syncs=syncs, scheduler=sched, device=dev,
+                          num_supersteps=PARITY_STEPS, dispatch=dispatch,
+                          use_kernel=use_kernel, **opts)
+            if not torch.equal(gpu.vertex_data["rank"].cpu(),
+                               cpu.vertex_data["rank"]) or (
+                    gpu.n_updates != cpu.n_updates):
+                raise AssertionError(f"split PageRank {label} {dispatch} "
+                                     f"use_kernel={use_kernel}: GPU != CPU")
+    launched = segment_sum_csr.launches - before
+    log(f"2k Zipf split at w_cap={SPLIT_PARITY_CAP} "
+        f"({g.ell.n_virtual} virtual rows): PageRank GPU == CPU bitwise "
+        f"on chromatic, bsp, priority, locking x {{bucket, batch}} x "
+        f"{{kernel, dense}}; segment_combine launches {launched}")
+    if launched <= 0:
+        raise AssertionError("the split runs never launched segment_combine")
+
+    labels = {"label": np.arange(n, dtype=np.int32)}
+    colors = g.colors.cpu().numpy()
+    cc_graphs = [DataGraph.from_edges(n, edges, labels, device="cpu",
+                                      **kw).with_colors(colors)
+                 for kw in ({}, {"w_cap": SPLIT_PARITY_CAP})]
+    truth = cc.reference_components(edges, n)
+    for sched, opts in (("chromatic", {}), ("locking", {"max_pending": 64})):
+        outs = [api.run(cg, cc.make_update(), scheduler=sched, device=dv,
+                        **opts)
+                for cg in cc_graphs for dv in (dev, "cpu")]
+        for o in outs:
+            if not np.array_equal(o.vertex_data["label"].cpu().numpy(),
+                                  truth):
+                raise AssertionError(f"CC {sched}: a run differs from "
+                                     "union-find")
+        if (outs[2].superstep, outs[2].n_updates) != (outs[3].superstep,
+                                                      outs[3].n_updates):
+            raise AssertionError(f"CC {sched} split: GPU counts != CPU's")
+    log("2k Zipf CC: split == unsplit == union-find, GPU and CPU, on "
+        "chromatic and locking")
+
+    vals = np.random.default_rng(1).integers(-50, 50, n).astype(np.float32)
+
+    def combine(scope, y):
+        return UpdateResult(v_data={"val": scope.v_data["val"],
+                                    "out": y[:, 0]})
+    intsum = aggregator_update(
+        lambda vd: vd["val"][..., None],
+        lambda scope: torch.ones_like(scope.nbr_mask, dtype=torch.float32),
+        combine, Consistency.EDGE, name="intsum")
+    vd = {"val": vals, "out": np.zeros(n, np.float32)}
+    int_graphs = [DataGraph.from_edges(n, edges, vd, device="cpu",
+                                       **kw).with_colors(colors)
+                  for kw in ({}, {"w_cap": 4})]
+    outs = [api.run(ig, intsum, scheduler=sched, device=dev, dispatch=dsp,
+                    use_kernel=k, num_supersteps=2, **opts)
+            for ig in int_graphs
+            for sched, opts in (("chromatic", {}),
+                                ("priority", {"k_select": 64}))
+            for dsp, k in arms]
+    half = len(outs) // 2
+    for a, b in zip(outs[:half], outs[half:]):
+        if not torch.equal(a.vertex_data["out"], b.vertex_data["out"]):
+            raise AssertionError("integer aggregator: split != unsplit")
+    log("2k Zipf integer aggregator: split (w_cap=4) == unsplit bitwise "
+        "on chromatic and priority in every arm")
+
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, (1 << 20, 2),
+                                         dtype=np.int64))
+    a, b = gibbs.split(keys)
+    ga, gb = gibbs.split(keys.to(dev))
+    if not (torch.equal(ga.cpu(), a) and torch.equal(gb.cpu(), b)
+            and torch.equal(gibbs.uniform(gb).cpu(), gibbs.uniform(b))):
+        raise AssertionError("Gibbs: keys or uniforms on the GPU != CPU")
+    want_k, want_u = np_split_uniform(np, keys.numpy().astype(np.uint32))
+    if not (np.array_equal(a.numpy().astype(np.uint32), want_k)
+            and np.array_equal(gibbs.uniform(b).numpy().view(np.uint32),
+                               want_u.view(np.uint32))):
+        raise AssertionError("Gibbs: keys or uniforms != the host's numpy "
+                             "threefry")
+    gn, gedges = grid_edges_3d(8, 16, 16)
+    ising = gibbs.ising_problem(gedges, gn, GIBBS_BETA, GIBBS_FIELD, seed=0,
+                                device="cpu")
+    gg, gupd, _ = gibbs.build(ising, burn_in=0)
+    sw_cpu = api.run(gg, gupd, scheduler="chromatic", num_supersteps=3,
+                     device="cpu")
+    sw_gpu = api.run(gg, gupd, scheduler="chromatic", num_supersteps=3,
+                     device=dev)
+    same_spin = float((sw_gpu.vertex_data["spin"].cpu()
+                       == sw_cpu.vertex_data["spin"]).float().mean())
+    if not (torch.equal(sw_gpu.vertex_data["key"].cpu(),
+                        sw_cpu.vertex_data["key"])
+            and torch.equal(sw_gpu.vertex_data["sweep"].cpu(),
+                            sw_cpu.vertex_data["sweep"])):
+        raise AssertionError("Gibbs sweeps: keys or counters GPU != CPU")
+    cycle = np.asarray([[0, 1], [1, 2], [2, 3], [3, 0]])
+    t0 = time.perf_counter()
+    small = gibbs.ising_problem(cycle, 4, GIBBS_BETA, GIBBS_FIELD, seed=1,
+                                device="cpu")
+    st = api.run(*gibbs.build(small, burn_in=100)[:2], scheduler="chromatic",
+                 max_supersteps=GIBBS_EXACT_SWEEPS, device=dev)
+    emp = gibbs.marginals(st.vertex_data)
+    exact = gibbs.exact_marginals(cycle, 4, GIBBS_BETA, GIBBS_FIELD)
+    gap = float(np.abs(emp - exact).max())
+    log(f"Gibbs: 2^20 keys' splits and uniforms GPU == CPU == numpy "
+        f"bitwise; 3 sweeps of a {gn}-vertex grid: keys and counters GPU "
+        f"== CPU, spins equal on {same_spin:.6f}; the 4-cycle after "
+        f"{st.superstep} sweeps on the GPU ({time.perf_counter() - t0:.1f} "
+        f"s): marginals {np.round(emp, 4).tolist()} vs exact "
+        f"{np.round(exact, 4).tolist()}, max gap {gap:.4f} (limit 0.05)")
+    if gap >= 0.05:
+        raise AssertionError(f"Gibbs marginals off the exact ones by {gap}")
+
+    prob = bptf.synthetic_bptf(30, 25, 5, d=4, density=0.3, noise=0.05,
+                               device="cpu")
+    bg, bupd, bsyncs = bptf.build(prob, lam=0.02)
+    outs = [api.run(bg, bupd, syncs=bsyncs, scheduler="chromatic",
+                    num_supersteps=30, device=dv) for dv in ("cpu", dev)]
+    diff = float((outs[1].vertex_data["w"].cpu()
+                  - outs[0].vertex_data["w"]).abs().max())
+    rmse = [bptf.dataset_rmse(prob, o.vertex_data, o.globals) for o in outs]
+    base = float(np.sqrt(np.mean(prob.ratings ** 2)))
+    log(f"BPTF 30 x 25 x 5, d=4: GPU vs CPU factors max |diff| {diff:.2e} "
+        f"(limit 1e-4: cuSOLVER's LU against LAPACK's), RMSE {rmse[1]:.6f} "
+        f"vs {rmse[0]:.6f}, {rmse[1] / base:.3f} of the ratings' RMS "
+        f"(limit 0.25)")
+    if diff > 1e-4 or abs(rmse[1] - rmse[0]) > 1e-5 or rmse[1] >= 0.25 * base:
+        raise AssertionError("BPTF: GPU off the CPU or not converged")
+
+    aprob = als.synthetic_netflix(25, 20, d=3, density=0.4, noise=0.05,
+                                  seed=4, device="cpu")
+    cpu_out, cpu_stats = mr.als_mapreduce(aprob, 6, lam=0.02)
+    gpu_out, gpu_stats = mr.als_mapreduce(on_device(aprob, dev), 6,
+                                          lam=0.02)
+    als_diff = max(float((gpu_out[k].cpu() - cpu_out[k]).abs().max())
+                   for k in cpu_out)
+    cprob = coem.synthetic_ner(120, 80, 3, mean_deg=8, seed_frac=0.15,
+                               seed=1, device="cpu")
+    c_cpu, _ = mr.coem_mapreduce(cprob, 30)
+    c_gpu, _ = mr.coem_mapreduce(on_device(cprob, dev), 30)
+    coem_diff = float((c_gpu["p"].cpu() - c_cpu["p"]).abs().max())
+    log(f"MapReduce: ALS 25 x 20 (d=3, 6 iterations) GPU vs CPU max |diff| "
+        f"{als_diff:.2e} (limit 1e-5), stats equal "
+        f"{gpu_stats == cpu_stats}; CoEM 120 x 80 (30 iterations) max "
+        f"|diff| {coem_diff:.2e} (limit 1e-6)")
+    if als_diff > 1e-5 or coem_diff > 1e-6 or gpu_stats != cpu_stats:
+        raise AssertionError("MapReduce: GPU off the CPU")
+
+
+def on_device(problem, device):
+    """``problem`` with its graph on ``device``."""
+    import dataclasses
+    return dataclasses.replace(problem, graph=problem.graph.to(device))
+
+
+def split_counts(torch, fn):
+    """``fn()`` with the ell_spmv, segment_combine and als_normal_eq
+    counts set to 0 just before and read just after: ``(result, wall s,
+    peak GiB, {kernel: launches})``, the launches added to the report's."""
+    from repro_torch.kernels.als_normal_eq import als_normal_eq
+    from repro_torch.kernels.ell_spmv import ell_spmv
+    from repro_torch.kernels.segment_combine import segment_sum_csr
+    counters = {"ell_spmv": ell_spmv, "segment_combine": segment_sum_csr,
+                "als_normal_eq": als_normal_eq}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: c.launches for k, c in counters.items()}
+    return out, wall, torch.cuda.max_memory_allocated() / 2**30, counts
+
+
+def phase_split_main(torch, ctx):
+    """Full size, counted: split PageRank (twice), split CC, Gibbs on the
+    CoSeg grid, BPTF on phase 7's ratings, MapReduce ALS and CoEM."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.baselines.mapreduce as mr
+    import repro_torch.core.exec as ex
+    from repro_torch import api
+    from repro_torch.apps import als, bptf, cc, coem, gibbs
+    dev = ctx["dev"]
+    total = ctx["launches"]
+
+    def count(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    layers = pagerank_layers()
+    for label, (g, upd, syncs) in ctx["split"].items():
+        res, wall, peak, counts = split_counts(
+            torch, lambda: api.run(g, upd, syncs=syncs, device=dev))
+        count(counts)
+        log(f"split PageRank {label}: {res.superstep} supersteps, "
+            f"{res.n_updates} updates, {wall:.3f} s "
+            f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), "
+            f"launches {counts}, peak device memory {peak:.2f} GiB")
+        if counts["ell_spmv"] <= 0 or counts["segment_combine"] <= 0:
+            raise AssertionError(f"split PageRank {label} did not launch "
+                                 "both kernels")
+        check_pagerank(np, res, ctx["zipf_edges"], f"split PageRank {label}")
+        report_superstep(torch, res.engine, layers)
+
+    g = next(iter(ctx["split"].values()))[0]
+    # CC on the split graph's storage and colors
+    cc_g = dataclasses.replace(g, vertex_data={
+        "label": torch.arange(FULL_N, dtype=torch.int32, device=dev)},
+        edge_data={})
+    truth = ctx["cc_truth"]
+    for label, sched, opts in (("chromatic", "chromatic", {}),
+                               ("locking", "locking",
+                                {"max_pending": WINDOW})):
+        res, _ = sched_run(torch, ctx, f"split CC {label}", cc_g,
+                           cc.make_update(), (), sched, opts,
+                           max_supersteps=CC_MAX_SUPERSTEPS)
+        labels = res.vertex_data["label"].cpu().numpy()
+        if res.active_any or not np.array_equal(labels, truth):
+            raise AssertionError(f"split CC {label}: not drained or "
+                                 f"{int((labels != truth).sum())} labels "
+                                 "differ from union-find")
+        report_superstep(torch, res.engine, scheduler_layers())
+    log("split CC: chromatic and locking equal union-find")
+    release(torch, ctx, "split")
+    del g, cc_g
+
+    gibbs_main(torch, ctx, np, ex, api, gibbs, count)
+    bptf_main(torch, ctx, np, api, bptf, count)
+
+    prob = ctx["als_dev"]
+    d = prob.d
+    (out, stats), wall, peak, counts = split_counts(
+        torch, lambda: mr.als_mapreduce(prob, MR_ITERS, lam=ALS_LAM))
+    count(counts)
+    # the run's wall holds the shuffle's set-up (two argsorts of the
+    # ratings on the host); time the iterations alone on its jobs
+    jobs, setup_s, _, _ = split_counts(torch, lambda: mr.als_jobs(prob, dev))
+    w = prob.graph.vertex_data["w"]
+    wu, wm = w[:prob.n_users], w[prob.n_users:]
+
+    def iterate():
+        state = (wu, wm)
+        for _ in range(MR_ITERS):
+            state = mr.als_mapreduce_iteration(*state, jobs, d, ALS_LAM)
+    _, it_wall, _, _ = split_counts(torch, iterate)
+    mr_ms = 1e3 * it_wall / MR_ITERS
+    g = prob.graph.with_colors(1 - prob.graph.colors.cpu().numpy())
+    chrom, c_wall, _, _ = split_counts(torch, lambda: api.run(
+        g, als.make_update(d, lam=ALS_LAM, eps=0.0), device=dev,
+        num_supersteps=MR_ITERS))
+    chrom_ms = 1e3 * c_wall / MR_ITERS
+    w_mr = torch.cat([out["w_users"], out["w_movies"]]).cpu().numpy()
+    w_ch = chrom.vertex_data["w"].cpu().numpy()
+    r64 = prob.ratings.astype(np.float64)
+    rm_mr = rmse64(prob.pairs, r64, w_mr.astype(np.float64), prob.n_users)
+    rm_ch = rmse64(prob.pairs, r64, w_ch.astype(np.float64), prob.n_users)
+    ne = len(prob.pairs)
+    log(f"MapReduce ALS: {MR_ITERS} iterations, {wall:.3f} s with the "
+        f"shuffle's set-up ({setup_s:.3f} s), {mr_ms:.2f} ms an iteration "
+        f"without it, launches {counts}, peak device memory {peak:.2f} "
+        f"GiB; RMSE {rm_mr:.7f} vs chromatic ALS (movies first, eps=0) "
+        f"{rm_ch:.7f} (|diff| {abs(rm_mr - rm_ch):.2e}, limit "
+        f"{MR_RMSE_TOL:.0e}); largest factor difference "
+        f"{float(np.abs(w_mr - w_ch).max()):.3e}; shuffled "
+        f"{stats.bytes_shuffled_per_iter} bytes an iteration (formula "
+        f"{2 * ne * (d + 1) * 4}); MapReduce / chromatic time "
+        f"{mr_ms / chrom_ms:.2f} ({chrom_ms:.2f} ms a chromatic superstep)")
+    if counts["segment_combine"] != 4 * MR_ITERS:
+        raise AssertionError(f"MapReduce ALS: {counts['segment_combine']} "
+                             f"segment_combine launches, not {4 * MR_ITERS}")
+    if abs(rm_mr - rm_ch) > MR_RMSE_TOL or not np.isfinite(w_mr).all():
+        raise AssertionError("MapReduce ALS off the chromatic run")
+    if stats.bytes_shuffled_per_iter != 2 * ne * (d + 1) * 4:
+        raise AssertionError("MapReduce ALS: shuffled bytes off the formula")
+    mr_layers = [(mr, "segment_sum_csr", "reduce (segment_combine)"),
+                 (torch.linalg, "solve_ex", "solve_ex (LU)")]
+    report_run(torch, "MapReduce ALS iteration", mr_layers,
+               lambda _: mr.als_mapreduce_iteration(wu, wm, jobs, d,
+                                                    ALS_LAM),
+               other="map (messages), host")
+    del jobs, chrom, g
+    release(torch, ctx, "als_dev", "als_host")
+
+    ner = ctx["ner"]
+    chrom = ctx["coem_chromatic"]
+    iters = chrom["supersteps"]
+    (out, stats), wall, peak, counts = split_counts(
+        torch, lambda: mr.coem_mapreduce(ner, iters))
+    count(counts)
+    acc = coem.label_accuracy(ner, out)
+    jobs, setup_s, _, _ = split_counts(torch, lambda: mr.coem_jobs(ner, dev))
+    p0 = ner.graph.vertex_data["p"][:ner.n_phrases]
+    seeds = ner.graph.vertex_data["is_seed"][:ner.n_phrases] > 0
+
+    def iterate():
+        p = p0
+        for _ in range(iters):
+            p, _ = mr.coem_mapreduce_iteration(p, jobs, seeds, p0)
+    _, it_wall, _, _ = split_counts(torch, iterate)
+    ms = 1e3 * it_wall / max(iters, 1)
+    log(f"MapReduce CoEM: {iters} iterations (chromatic CoEM's), {wall:.3f} "
+        f"s with the shuffle's set-up ({setup_s:.3f} s), {ms:.2f} ms an "
+        f"iteration without it, launches {counts}, peak device memory "
+        f"{peak:.2f} GiB; accuracy {acc:.4f} vs chromatic "
+        f"{chrom['accuracy']:.4f} (limit {MR_COEM_ACC_TOL}); shuffled "
+        f"{stats.bytes_shuffled_per_iter} bytes an iteration; MapReduce / "
+        f"chromatic time {ms / chrom['ms_per_superstep']:.2f}")
+    if abs(acc - chrom["accuracy"]) >= MR_COEM_ACC_TOL:
+        raise AssertionError("MapReduce CoEM's accuracy off chromatic's")
+    report_run(torch, "MapReduce CoEM iteration", mr_layers[:1],
+               lambda _: mr.coem_mapreduce_iteration(p0, jobs, seeds, p0),
+               other="map (messages), normalize, host")
+
+
+def gibbs_main(torch, ctx, np, ex, api, gibbs, count):
+    """Gibbs on the CoSeg grid for GIBBS_SWEEPS sweeps; the last sweep's
+    phases recomputed on the host."""
+    prob = ctx["ising"]
+    g, upd, _ = gibbs.build(prob, burn_in=GIBBS_BURN_IN)
+    phases, _, unspy = capture_phases(ex, keep=g.n_colors)
+    try:
+        res, wall, peak, counts = split_counts(torch, lambda: api.run(
+            g, upd, scheduler="chromatic", num_supersteps=GIBBS_SWEEPS,
+            device=ctx["dev"]))
+    finally:
+        unspy()
+    count(counts)
+    log(f"Gibbs on {COSEG_SHAPE}: {res.superstep} sweeps, {res.n_updates} "
+        f"updates, {wall:.3f} s ({1e3 * wall / res.superstep:.2f} ms/sweep),"
+        f" launches {counts}, peak device memory {peak:.2f} GiB")
+    checked, unclear, worst_u = 0, 0, 0
+    for ph in phases[-g.n_colors:]:
+        v = ph.ids.long()
+        key0 = ph.v_before["key"][v]
+        k_np = key0.cpu().numpy().astype(np.uint32)
+        want_k, want_u = np_split_uniform(np, k_np)
+        got_u = gibbs.uniform(gibbs.split(key0)[1]).cpu().numpy()
+        if not np.array_equal(ph.v_after["key"][v].cpu().numpy().astype(
+                np.uint32), want_k):
+            raise AssertionError("Gibbs: new keys != the host's threefry")
+        worst_u = max(worst_u, int((got_u.view(np.uint32)
+                                    != want_u.view(np.uint32)).sum()))
+        rows = g.struct_rows(ph.ids)
+        spin0 = ph.v_before["spin"]
+        s = torch.where(rows.nbr_mask, 2.0 * spin0[rows.nbrs.long()] - 1.0,
+                        0.0).sum(1).cpu().numpy().astype(np.float64)
+        p = 1.0 / (1.0 + np.exp(-2.0 * (GIBBS_BETA * s + GIBBS_FIELD)))
+        u = want_u.astype(np.float64)
+        clear = np.abs(u - p) > GIBBS_CLEAR
+        got = ph.v_after["spin"][v].cpu().numpy()
+        bad = int((got[clear] != (u < p)[clear]).sum())
+        if bad:
+            raise AssertionError(f"Gibbs: {bad} clear draws differ from the "
+                                 "host's")
+        checked += len(u)
+        unclear += int((~clear).sum())
+    if worst_u:
+        raise AssertionError(f"Gibbs: {worst_u} uniforms != the host's")
+    n_col = res.vertex_data["n"].cpu().numpy()
+    marg = gibbs.marginals(res.vertex_data)
+    log(f"Gibbs last sweep: {checked} draws against the host's numpy "
+        f"threefry and float64 p: keys and uniforms bitwise, spins equal "
+        f"where |u - p| > {GIBBS_CLEAR:.0e}, {unclear} draws within it "
+        f"(not compared); samples a vertex {int(n_col.min())}.."
+        f"{int(n_col.max())}; mean marginal {float(marg.mean()):.4f}")
+    if not (n_col == GIBBS_SWEEPS - GIBBS_BURN_IN).all() or not (
+            (marg >= 0) & (marg <= 1)).all():
+        raise AssertionError("Gibbs: sample counts or marginals wrong")
+    report_superstep(torch, res.engine, scheduler_layers())
+    release(torch, ctx, "ising")
+
+
+def bptf_main(torch, ctx, np, api, bptf, count):
+    """BPTF at phase 7's ratings for BPTF_SUPERSTEPS supersteps, the time
+    table and 1,000 movies' normal equations checked in float64."""
+    import repro_torch.apps.bptf as bptf_mod
+    import repro_torch.core.exec as ex
+    prob = ctx["bptf"]
+    g, upd, syncs = bptf.build(prob, lam=BPTF_LAM, eps=0.0)
+    res, wall, peak, counts = split_counts(torch, lambda: api.run(
+        g, upd, syncs=syncs, device=ctx["dev"],
+        num_supersteps=BPTF_SUPERSTEPS))
+    count(counts)
+    log(f"BPTF: {res.superstep} supersteps, {res.n_updates} updates, "
+        f"{wall:.3f} s ({1e3 * wall / res.superstep:.2f} ms/superstep), "
+        f"launches {counts}, peak device memory {peak:.2f} GiB")
+    if counts["als_normal_eq"] <= 0:
+        raise AssertionError("BPTF never launched als_normal_eq")
+    nu, nm, d = prob.n_users, prob.n_movies, prob.d
+    w = res.vertex_data["w"].cpu().numpy()
+    if not np.isfinite(w).all():
+        raise AssertionError("BPTF factors are not finite")
+    w64 = w.astype(np.float64)
+    # the time vertices hold slots 0..T-1 in order, one a slot; the
+    # movies of the last superstep read the table of the one before, equal
+    # to this one: the time factors start at 1 and smoothing keeps them 1
+    table = res.globals["time_factors"].cpu().numpy().astype(np.float64)
+    want_table = w64[nu + nm:]
+    t_err = float(np.abs(table - want_table).max())
+    tri = prob.triples
+    r64 = prob.ratings.astype(np.float64)
+    se = 0.0
+    for s in range(0, len(tri), 1 << 22):
+        t = tri[s:s + (1 << 22)]
+        pred = np.einsum("ed,ed->e", w64[t[:, 0]] * table[t[:, 2]],
+                         w64[t[:, 1] + nu])
+        se += float(np.sum((pred - r64[s:s + len(t)]) ** 2))
+    rmse = (se / len(tri)) ** 0.5
+    base = float(np.sqrt(np.mean(r64 ** 2)))
+    order = np.argsort(tri[:, 1], kind="stable")
+    starts = np.searchsorted(tri[order, 1], np.arange(nm + 1))
+    worst = 0.0
+    for m in np.random.default_rng(0).choice(nm, BPTF_CHECKED_MOVIES,
+                                             replace=False):
+        e = order[starts[m]:starts[m + 1]]
+        if not len(e):
+            continue
+        x = w64[tri[e, 0]] * table[tri[e, 2]]
+        a = x.T @ x + BPTF_LAM * len(e) * np.eye(d)
+        want = np.linalg.solve(a, x.T @ r64[e])
+        worst = max(worst, float(np.linalg.norm(w64[nu + m] - want)
+                                 / np.linalg.norm(want)))
+    log(f"BPTF: RMSE {rmse:.7f} (float64), {rmse / base:.4f} of the "
+        f"ratings' RMS {base:.7f} (limit 0.25); time table vs the time "
+        f"vertices max |diff| {t_err:.2e}; {BPTF_CHECKED_MOVIES} movies "
+        f"against float64 solves: max relative error {worst:.3e} (limit "
+        f"{ALS_FACTOR_RTOL:.0e})")
+    if rmse >= 0.25 * base or t_err > 1e-6 or worst > ALS_FACTOR_RTOL:
+        raise AssertionError("BPTF off its gates")
+    report_superstep(torch, res.engine, [
+        (ex, "gather_scopes", "gather_scopes"),
+        (bptf_mod, "als_normal_eq_fold", "als_normal_eq_fold (the kernel)"),
+        (torch.linalg, "solve_ex", "solve_ex (LU solve)"),
+        (ex, "scatter_result", "scatter_result (write-back)"),
+        (ex, "consume_and_reschedule", "consume_and_reschedule"),
+        (ex, "refresh_syncs", "refresh_syncs (time table)")])
+    release(torch, ctx, "bptf")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -2182,7 +3007,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     try:
-        logs = _build.build(["ell_spmv", "als_normal_eq", "window_attention"])
+        logs = _build.build(["ell_spmv", "als_normal_eq", "window_attention",
+                             "segment_combine"])
         log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
         for name, text in logs.items():
             for line in text.splitlines():
@@ -2229,7 +3055,12 @@ def main() -> int:
                      ("schedulers set-up", setup_schedulers),
                      ("phase 11 schedulers kernels", phase_sched_kernels),
                      ("phase 12 schedulers parity", phase_sched_parity),
-                     ("phase 13 schedulers main path", phase_sched_main)):
+                     ("phase 13 schedulers main path", phase_sched_main),
+                     ("split set-up", setup_split),
+                     ("phase 14 split kernels", phase_split_kernels),
+                     ("phase 15 split and app parity", phase_split_parity),
+                     ("phase 16 split and apps main path",
+                      phase_split_main)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:
@@ -2278,6 +3109,16 @@ def main() -> int:
         **{k: n_layers * step[k]
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": step["bound_by"],
+    })
+    owner = ctx["split_seg_cases"][0]   # a split PageRank phase's combine
+    kernels.append({
+        "name": "segment_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
+        "replaces": "src/repro/kernels/ell_spmv.py:185",
+        "launches": ctx["launches"]["segment_combine"],
+        "max_abs_err": max(c["max_abs_err"] for c in ctx["split_seg_cases"]),
+        **{k: owner[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

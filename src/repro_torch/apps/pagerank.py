@@ -59,25 +59,38 @@ def edge_weights(edges: np.ndarray, n_vertices: int) -> np.ndarray:
         np.float32)
 
 
-def make_graph(edges: np.ndarray, n_vertices: int, device=None) -> DataGraph:
-    """A colored PageRank data graph with symmetric normalized weights."""
+def make_graph(edges: np.ndarray, n_vertices: int, *,
+               hub_split: bool = False, w_cap: int | None = None,
+               colors: np.ndarray | None = None,
+               device=None) -> DataGraph:
+    """A colored PageRank data graph with symmetric normalized weights.
+    ``hub_split=True`` (or an explicit ``w_cap=``) stores rows wider than
+    ``w_cap`` as virtual rows (``DataGraph.from_edges``).  The colors
+    are greedy (the reference's) unless ``colors`` gives a coloring the
+    caller already has."""
     g = DataGraph.from_edges(
         n_vertices, edges,
         vertex_data={"rank": np.ones(n_vertices, np.float32)},
         edge_data={"w": edge_weights(edges, n_vertices)},
         edge_locality=False,
+        hub_split=hub_split,
+        w_cap=w_cap,
         device=device,
     )
-    return g.with_colors(greedy_coloring(n_vertices, edges))
+    return g.with_colors(greedy_coloring(n_vertices, edges)
+                         if colors is None else colors)
 
 
 def build(edges: np.ndarray, n_vertices: int, *, eps: float = 1e-4,
-          tau: int = 1, device=None):
+          tau: int = 1, hub_split: bool = False, w_cap: int | None = None,
+          colors: np.ndarray | None = None, device=None):
     """Uniform facade triple ``(graph, update, syncs)`` for
     ``repro_torch.api.run``; the syncs are the paper's §3.3 examples
     (second most popular page + total rank), refreshed every ``tau``
-    supersteps."""
-    graph = make_graph(edges, n_vertices, device=device)
+    supersteps.  ``hub_split``, ``w_cap`` and ``colors`` as in
+    ``make_graph``."""
+    graph = make_graph(edges, n_vertices, hub_split=hub_split, w_cap=w_cap,
+                       colors=colors, device=device)
     syncs = (second_most_popular_sync(tau), total_rank_sync(tau))
     return graph, make_update(eps), syncs
 

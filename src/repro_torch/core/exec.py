@@ -29,8 +29,12 @@ The port of ``repro.core.exec``:
   implements the scheduling strategy: ``prepare`` once a superstep,
   ``select`` for each phase, and optionally ``nbr_stamp``.
 
-Hub splitting (the chunked batch arms) and the fitted cost model are
-not ported yet (ROADMAP A6, A8).
+On a hub-split graph both dispatch shapes run stage 1 over virtual rows
+(``[Nv_b, W_b]`` bucket blocks, or ``[B*s, w_cap]`` chunk pseudo-rows of
+a window wider than ``w_cap``) and stage 2, the sum of each owner's
+partials, through the ``segment_combine`` CUDA kernel
+(``segment_sum_csr``), one combine shared by the kernel and dense arms.
+The fitted cost model is not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core.update import UpdateFn, gather_scopes, scatter_result
 from repro_torch.kernels.ell_spmv import (ell_fold, ell_fold_bucketed,
                                           ell_spmv_batched,
                                           ell_spmv_bucketed)
+from repro_torch.kernels.segment_combine import segment_sum_csr
 
 
 # ----------------------------------------------------------------------
@@ -283,8 +288,28 @@ def route_batch_to_buckets(ell, ids, sel, w, vals=None):
     row mask anyway).  Each bucket takes only its own batch rows (a
     ``nonzero`` of the bucket's membership), so the cost is the rows
     routed, not ``B`` per bucket.
+
+    On a split graph the batch's owner-space slot arrays are first cut
+    into ``[B * n_chunks_max, w_cap]`` chunk pseudo-rows (slot ``j`` of
+    row ``i`` is slot ``j % w_cap`` of pseudo-row ``i * n_chunks_max +
+    j // w_cap``), each routed to its owner's virtual row.
     """
-    pos = torch.where(sel, ell.inv_perm[ids.long()], ell.total_rows)
+    if ell.w_cap is not None:
+        wc, s_max = ell.w_cap, ell.n_chunks_max
+        idl = ids.long()
+        first = ell.vrow_offset[idl].long()
+        k = torch.arange(s_max, device=ids.device)
+        ok = sel[:, None] & (k < (ell.vrow_offset[idl + 1].long()
+                                  - first)[:, None])
+        vid = (first[:, None] + k).clamp_max(ell.n_virtual - 1)
+        pos = torch.where(ok, ell.inv_perm[vid], ell.total_rows).view(-1)
+        t = s_max * wc
+        w = _pad_slots(w, t).reshape(-1, wc)
+        if vals is not None:
+            vals = _pad_slots(vals, t).reshape((-1, wc) + vals.shape[2:])
+        sel = ok.view(-1)
+    else:
+        pos = torch.where(sel, ell.inv_perm[ids.long()], ell.total_rows)
     w_blocks, v_blocks = [], []
     for b in range(ell.n_buckets):
         s, e, wb = ell.starts[b], ell.starts[b + 1], ell.widths[b]
@@ -301,11 +326,41 @@ def route_batch_to_buckets(ell, ids, sel, w, vals=None):
     return w_blocks, v_blocks
 
 
+def _pad_slots(a, t):
+    """``a [B, D, ...]`` cut or zero-padded to ``t`` slots (pre-masked:
+    the slots past a row's width are zero)."""
+    d = a.shape[1]
+    if d >= t:
+        return a[:, :t]
+    out = a.new_zeros((a.shape[0], t) + a.shape[2:])
+    out[:, :d] = a
+    return out
+
+
 def _owner_rows(ell, y_rows, ids, sel):
-    """Bucketed-order results -> ``[B, F]`` owner-row results (the
-    inverse-permutation gather; the hub-split branch waits for A6)."""
-    y = y_rows[ell.inv_perm[ids.long()].long()]
+    """Bucketed-order results -> ``[B, F]`` owner-row results.
+
+    Unsplit this is the inverse-permutation gather.  On a split graph
+    the virtual-row partials, in virtual-row order, are summed onto
+    their owners by ``segment_sum_csr`` over ``vrow_offset`` (an owner's
+    virtual rows are contiguous): stage 2 of the hub split, the one op
+    both arms exit through.
+    """
+    if ell.w_cap is None:
+        y = y_rows[ell.inv_perm[ids.long()].long()]
+    else:
+        y_own = segment_sum_csr(y_rows[ell.inv_perm.long()],
+                                ell.vrow_offset)
+        y = y_own[ids.long()]
     return torch.where(sel[:, None], y, 0.0)
+
+
+def _combine_chunks(y_part, b: int, n_chunk: int):
+    """``[b * n_chunk, F]`` chunk partials -> ``[b, F]``: each window
+    row's chunks summed in chunk order (``segment_sum_csr``)."""
+    offsets = torch.arange(b + 1, dtype=torch.int64,
+                           device=y_part.device) * n_chunk
+    return segment_sum_csr(y_part, offsets)
 
 
 def bucketed_dense_fold(ell, ids, sel, w, vals):
@@ -336,28 +391,46 @@ def dispatch_update(struct, update_fn: UpdateFn, vertex_data, edge_data,
     ``[B, W]`` adjacency at its snapped width, the kernel arm launches
     ``ell_spmv_batched`` once at ``[B, W]``, and the dense arm folds the
     same ``[B, W]`` scope through ``ell_fold``, one accumulation again.
+    On a split graph a window wider than ``w_cap`` runs both at
+    ``[B*s, w_cap]`` chunk pseudo-rows and sums each row's chunks with
+    ``segment_sum_csr``.
     """
     agg = update_fn.aggregator
     if agg is None:
         scope = gather_scopes(struct, vertex_data, edge_data, ids, globals_,
                               rows=rows)
         return scope, update_fn(scope)
+    # a window wider than w_cap (it holds a hub) runs as its chunks
+    w_cap = struct.ell.w_cap
+    win_w = rows.nbrs.shape[1] if batch_shaped else 0
+    n_chunk = win_w // w_cap if w_cap is not None and win_w > w_cap else 1
+
+    def chunked(a):
+        return a.reshape((a.shape[0] * n_chunk, a.shape[1] // n_chunk)
+                         + a.shape[2:]).contiguous()
+
+    row_sel = sel.repeat_interleave(n_chunk) if n_chunk > 1 else sel
     if not use_kernel:
         scope = gather_scopes(struct, vertex_data, edge_data, ids, globals_,
                               rows=rows)
         w = torch.where(scope.nbr_mask, agg.weight(scope), 0.0).float()
         vals = agg.feature(scope.nbr_data).float()
-        if batch_shaped:
-            y = ell_fold(w.contiguous(), vals.contiguous(), row_mask=sel)
-        else:
+        if not batch_shaped:
             y = bucketed_dense_fold(struct.ell, ids, sel, w, vals)
+        else:
+            y = ell_fold(chunked(w), chunked(vals), row_mask=row_sel)
+            if n_chunk > 1:
+                y = _combine_chunks(y, w.shape[0], n_chunk)
         return scope, agg.combine(scope, y)
     scope = gather_scopes(struct, vertex_data, edge_data, ids, globals_,
                           with_nbr_data=False, rows=rows)
     x = agg.feature(vertex_data).float().contiguous()
     w = torch.where(scope.nbr_mask, agg.weight(scope), 0.0).float()
     if batch_shaped:
-        y = ell_spmv_batched(scope.nbr_ids, w.contiguous(), x, row_mask=sel)
+        y = ell_spmv_batched(chunked(scope.nbr_ids), chunked(w), x,
+                             row_mask=row_sel)
+        if n_chunk > 1:
+            y = _combine_chunks(y, w.shape[0], n_chunk)
         return scope, agg.combine(scope, y)
     ell = struct.ell
     w_blocks, _ = route_batch_to_buckets(ell, ids, sel, w)

@@ -17,9 +17,10 @@ Conventions (per bucket block, and in any padded view of it):
 * ``is_src[v, j]``    -- True iff v is endpoint 0 of that edge
 
 Vertex and edge data are dicts of tensors with leading dim ``Nv`` resp.
-``n_edges + 1`` (one pad row).  Hub splitting, mutation slack and
-measured width plans are not ported yet (ROADMAP A6, A11): asking for
-them raises ``NotImplementedError``.
+``n_edges + 1`` (one pad row).  Hub splitting (``hub_split=`` /
+``w_cap=``) chunks rows wider than ``w_cap`` into virtual rows, as the
+reference does.  Mutation slack and measured width plans are not ported
+yet (ROADMAP A11, A8): asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -81,12 +82,19 @@ class SlicedEll:
     the blocks are row ids in the original addressing.  The blocks are
     views of four flat stores (``slots``), so a batch of rows from any
     buckets is one gather of each.
+
+    Hub splitting: with ``w_cap`` set, rows wider than ``w_cap`` are
+    chunked into virtual rows of width ``<= w_cap``; the blocks,
+    ``perm`` and ``inv_perm`` then live in virtual-row space while
+    ``n_rows`` / ``max_deg`` keep describing owner rows.  Row ``r``'s
+    virtual rows are the id range ``[vrow_offset[r], vrow_offset[r+1])``,
+    chunk ``k`` holding its slots ``[k*w_cap, (k+1)*w_cap)``.
     """
 
     widths: tuple[int, ...]
     starts: tuple[int, ...]
-    n_rows: int
-    max_deg: int
+    n_rows: int                           # owner rows when split
+    max_deg: int                          # owner max degree when split
     pad_edge: int
     # the stored slots, flat: bucket b's block row-major from
     # ``block_offsets(...)[0][b]``; the gaps between blocks and the last
@@ -103,6 +111,11 @@ class SlicedEll:
         init=False, repr=False, compare=False)          # int32
     is_src: tuple[torch.Tensor, ...] = dataclasses.field(
         init=False, repr=False, compare=False)          # bool
+    # hub splitting; None / 1 when unsplit
+    w_cap: int | None = None              # chunk width cap (a power of 2)
+    n_chunks_max: int = 1                 # most virtual rows of any owner
+    owner_of_vrow: torch.Tensor | None = None   # [n_virtual] int32
+    vrow_offset: torch.Tensor | None = None     # [n_rows + 1] int32
 
     def __post_init__(self):
         offs, pad = block_offsets(self.starts, self.widths)
@@ -123,6 +136,11 @@ class SlicedEll:
         self._pad_slot = pad
         self._ends = torch.tensor(self.starts[1:], dtype=torch.int32,
                                   device=self.device)
+        # window_bucket's chunk-count classes past the buckets: 2, 4, ...
+        n_wide = len(self.scope_widths) - self.n_buckets
+        self._chunk_bounds = torch.tensor([2 << j for j in range(n_wide)],
+                                          dtype=torch.int32,
+                                          device=self.device)
 
     @property
     def device(self) -> torch.device:
@@ -133,9 +151,30 @@ class SlicedEll:
         return len(self.widths)
 
     @property
+    def is_split(self) -> bool:
+        return self.w_cap is not None
+
+    @property
+    def n_virtual(self) -> int:
+        """Virtual rows (== addressable rows when unsplit)."""
+        return (self.n_rows if self.owner_of_vrow is None
+                else self.owner_of_vrow.shape[0])
+
+    @property
     def scope_widths(self) -> tuple[int, ...]:
-        """Width classes of batch-shaped gathers (the bucket widths)."""
-        return self.widths
+        """Width classes of batch-shaped gathers: the bucket widths and,
+        when split, the chunk multiples ``2*w_cap, 4*w_cap, ...`` up to
+        the first one covering ``max_deg`` (hub rows are gathered as
+        several chunks)."""
+        if self.w_cap is None:
+            return self.widths
+        ws = list(self.widths)
+        w = self.w_cap * 2
+        while w < self.max_deg:
+            ws.append(w)
+            w *= 2
+        ws.append(w)
+        return tuple(ws)
 
     @property
     def total_rows(self) -> int:
@@ -170,22 +209,60 @@ class SlicedEll:
         selected row of the window needs; 0 for an empty selection.
 
         The batch-shaped dispatch branches on it on the host, so it is
-        one device-to-host read (``.item()``) a call.
+        one device-to-host read (``.item()``) a call.  When split,
+        single-chunk rows report their virtual row's bucket and hub rows
+        the chunk-count class ``n_buckets + log2ceil(n_chunks) - 1``.
         """
         if ids.numel() == 0:
             return 0
-        b = torch.searchsorted(self._ends, self.inv_perm[ids.long()],
-                               right=True)
-        return int(torch.where(sel, b, 0).max().item())
+        ids = ids.long()
+        if self.w_cap is None:
+            b = torch.searchsorted(self._ends, self.inv_perm[ids],
+                                   right=True)
+            return int(torch.where(sel, b, 0).max().item())
+        off = self.vrow_offset
+        nch = off[ids + 1] - off[ids]
+        b_single = torch.searchsorted(
+            self._ends, self.inv_perm[off[ids].long()], right=True)
+        b_wide = self.n_buckets + torch.searchsorted(self._chunk_bounds, nch)
+        cls = torch.where(nch > 1, b_wide, b_single)
+        return int(torch.where(sel, cls, 0).max().item())
 
     def rows(self, ids: torch.Tensor, width: int | None = None) -> EllRows:
         """Materialize ``[B, W]`` adjacency rows (default ``W=max_deg``);
         columns past a row's bucket width read as padding.  ``width``
-        snaps up to a bucket width; rows of wider buckets then read as
+        snaps up to a scope width; rows of wider classes then read as
         empty, so callers pass at least the window's ``window_bucket``
-        width."""
-        d = self.max_deg if width is None else self.snap_width(width)
-        return self._gather_rows(self.inv_perm[ids.long()], d)
+        width.  When split, a row wider than ``w_cap`` is its chunks
+        side by side (``s = W / w_cap`` of them, gathered at once), so
+        the owner-space view is bitwise the unsplit padded row."""
+        ids = ids.long()
+        if self.w_cap is None:
+            d = self.max_deg if width is None else self.snap_width(width)
+            return self._gather_rows(self.inv_perm[ids], d)
+        off = self.vrow_offset
+        first = off[ids].long()
+        nch = off[ids + 1].long() - first
+        if width is not None:
+            d = self.snap_width(width)
+            if d <= self.w_cap:
+                # single-chunk class: hubs (nch > 1) read as empty
+                pos = torch.where(nch == 1, self.inv_perm[first],
+                                  self.total_rows)
+                return self._gather_rows(pos, d)
+            s = d // self.w_cap
+        else:
+            s = -(-self.max_deg // self.w_cap)
+        k = torch.arange(s, device=self.device)
+        ok = (k < nch[:, None]) & (nch[:, None] <= s)
+        vid = (first[:, None] + k).clamp_max(self.n_virtual - 1)
+        pos = torch.where(ok, self.inv_perm[vid], self.total_rows)
+        b = ids.shape[0]
+        out = EllRows(*(a.view(b, s * self.w_cap) for a in
+                        self._gather_rows(pos.view(-1), self.w_cap)))
+        if width is None and s * self.w_cap != self.max_deg:
+            out = EllRows(*(a[:, : self.max_deg] for a in out))
+        return out
 
     def _gather_rows(self, pos: torch.Tensor, d: int) -> EllRows:
         """Rows at bucketed positions ``pos [B]``; positions outside
@@ -240,10 +317,21 @@ class SlicedEll:
     def row_activation(self, ids: torch.Tensor,
                        sel: torch.Tensor) -> torch.Tensor:
         """Route selected batch slots to their bucketed rows:
-        ``[total_rows]`` bool."""
+        ``[total_rows]`` bool.  When split, a selected owner activates
+        all of its virtual rows (each chunk holds a slice of its
+        scope)."""
         act = torch.zeros(self.total_rows, dtype=torch.bool,
                           device=self.device)
-        act[self.inv_perm[ids[sel].long()].long()] = True
+        ids = ids[sel].long()
+        if self.w_cap is None:
+            act[self.inv_perm[ids].long()] = True
+            return act
+        off = self.vrow_offset
+        first = off[ids].long()
+        k = torch.arange(self.n_chunks_max, device=self.device)
+        vid = first[:, None] + k
+        vid = vid[k < (off[ids + 1].long() - first)[:, None]]
+        act[self.inv_perm[vid].long()] = True
         return act
 
     def to_padded(self) -> EllRows:
@@ -251,9 +339,12 @@ class SlicedEll:
         return self.rows(torch.arange(self.n_rows, device=self.device))
 
     def to(self, device) -> "SlicedEll":
+        move = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(
             self, slots=EllRows(*(t.to(device) for t in self.slots)),
-            perm=self.perm.to(device), inv_perm=self.inv_perm.to(device))
+            perm=self.perm.to(device), inv_perm=self.inv_perm.to(device),
+            owner_of_vrow=move(self.owner_of_vrow),
+            vrow_offset=move(self.vrow_offset))
 
 
 def block_offsets(starts: Sequence[int],
@@ -382,6 +473,71 @@ def build_sliced_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
 
 
 # ----------------------------------------------------------------------
+# Hub splitting: virtual rows of width <= w_cap (host side, build time)
+# ----------------------------------------------------------------------
+
+def default_w_cap(degrees) -> int:
+    """The smallest power of two covering the 99th-percentile degree,
+    clamped to [2, 64]: rows past the p99 knee split into chunks, the
+    bulk stay single-chunk."""
+    deg = np.asarray(degrees, dtype=np.int64)
+    target = int(np.quantile(deg, 0.99)) if deg.size else 2
+    w = 2
+    while w < min(max(target, 2), 64):
+        w *= 2
+    return w
+
+
+def split_hub_rows(nbrs: np.ndarray, nbr_mask: np.ndarray,
+                   edge_ids: np.ndarray, is_src: np.ndarray,
+                   pad_edge: int, w_cap: int):
+    """Chunk padded-ELL rows into ``[n_virtual, w_cap]`` virtual rows.
+
+    Row ``r`` with ``c`` real slots (prefix-filled) becomes
+    ``ceil(c / w_cap)`` virtual rows, at least one, chunk ``k`` holding
+    slots ``[k*w_cap, (k+1)*w_cap)``; columns past the padded width
+    carry the padding values.  Returns ``(nbrs, mask, edge_ids, is_src,
+    owner [n_virtual] int64, vrow_offset [n + 1] int64)``.
+    """
+    n, d = nbrs.shape
+    slot_cnt = nbr_mask.sum(axis=1).astype(np.int64)
+    nchunks = np.maximum(1, -(-slot_cnt // w_cap))
+    vrow_offset = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(nchunks, out=vrow_offset[1:])
+    owner = np.repeat(np.arange(n, dtype=np.int64), nchunks)
+    chunk = np.arange(len(owner), dtype=np.int64) - vrow_offset[owner]
+    cols = chunk[:, None] * w_cap + np.arange(w_cap, dtype=np.int64)
+    valid = cols < d
+    safe = np.minimum(cols, max(d - 1, 0))
+    rows = owner[:, None]
+    vn = np.where(valid, nbrs[rows, safe], 0).astype(np.int32)
+    vm = valid & nbr_mask[rows, safe]
+    ve = np.where(valid, edge_ids[rows, safe], pad_edge).astype(np.int32)
+    vs = valid & is_src[rows, safe]
+    return vn, vm, ve, vs, owner, vrow_offset
+
+
+def build_split_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
+                    edge_ids: np.ndarray, is_src: np.ndarray,
+                    pad_edge: int, w_cap: int, device=None) -> SlicedEll:
+    """Hub-split a padded ELL and bucket the virtual rows on the
+    ``default_bucket_widths(w_cap)`` ladder: the widest stored block is
+    ``w_cap`` whatever the skew."""
+    n, d = nbrs.shape
+    vn, vm, ve, vs, owner, off = split_hub_rows(
+        nbrs, nbr_mask, edge_ids, is_src, pad_edge, w_cap)
+    device = resolve_device(device)
+    ell = build_sliced_ell(vn, vm, ve, vs, pad_edge=pad_edge,
+                           widths=default_bucket_widths(w_cap),
+                           device=device)
+    up = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return dataclasses.replace(
+        ell, n_rows=n, max_deg=int(d), w_cap=int(w_cap),
+        n_chunks_max=int((off[1:] - off[:-1]).max()) if n else 1,
+        owner_of_vrow=up(owner), vrow_offset=up(off))
+
+
+# ----------------------------------------------------------------------
 # Padded-ELL builder (host side)
 # ----------------------------------------------------------------------
 
@@ -473,16 +629,54 @@ class DataGraph:
         permuted here; ``edge_perm`` maps back).  Data values may be
         numpy arrays or tensors; they keep their dtype.  Tensors go to
         ``device`` (default: the GPU, see ``resolve_device``).
+
+        ``hub_split`` / ``w_cap`` chunk rows wider than ``w_cap`` (a
+        power of two >= 2; default ``default_w_cap`` of the degrees)
+        into virtual rows, so no stored block is wider than ``w_cap``.
+        ``w_cap`` implies ``hub_split``; a graph whose max degree fits
+        ``w_cap`` stays unsplit.  The illegal values and combinations
+        raise the reference's ``ValueError``s.
         """
         device = resolve_device(device)
-        if hub_split or w_cap is not None:
+        if width_policy not in (None, "pow2", "measured"):
+            raise ValueError(
+                f"unknown width_policy {width_policy!r}: expected one "
+                f"of (None, 'pow2', 'measured')")
+        if width_policy == "measured" and (
+                hub_split or w_cap is not None or bucket_widths is not None):
+            raise ValueError(
+                "width_policy='measured' chooses the bucket ladder "
+                "itself; legal combinations: width_policy='measured' "
+                "alone, or bucket_widths/hub_split/w_cap with the "
+                "default policy")
+        if w_cap is not None:
+            legal = "a power of two >= 2 (e.g. 2, 4, ..., 64)"
+            if isinstance(w_cap, bool) \
+                    or not isinstance(w_cap, (int, np.integer)) \
+                    or w_cap < 2 or (w_cap & (w_cap - 1)):
+                raise ValueError(
+                    f"w_cap={w_cap!r}: legal values are {legal}")
+            hub_split = True
+        if hub_split and bucket_widths is not None:
+            raise ValueError(
+                "hub_split uses the default_bucket_widths(w_cap) ladder; "
+                "legal combinations: bucket_widths alone, or "
+                "hub_split/w_cap alone")
+        if isinstance(slack, bool) or not isinstance(slack, (int, np.integer)) \
+                or slack < 0:
+            raise ValueError(f"slack must be a non-negative int, got {slack!r}")
+        if slack and (hub_split or width_policy == "measured"
+                      or bucket_widths is not None):
+            raise ValueError(
+                "slack= (mutable storage) is incompatible with "
+                "hub_split/w_cap/width_policy='measured'/bucket_widths: "
+                "those pick bucket ladders with no insert headroom; legal "
+                "combinations: slack alone, or the frozen-storage options "
+                "alone")
+        if width_policy == "measured":
             raise NotImplementedError(
-                "hub splitting (hub_split=/w_cap=) is not ported to "
-                "repro_torch yet: ROADMAP A6")
-        if width_policy not in (None, "pow2"):
-            raise NotImplementedError(
-                f"width_policy={width_policy!r} is not ported to "
-                "repro_torch yet (measured width plans): ROADMAP A6")
+                "width_policy='measured' (width plans scored by a fitted "
+                "cost model) is not ported to repro_torch yet: ROADMAP A8")
         if slack:
             raise NotImplementedError(
                 "slack= (mutable storage) is not ported to repro_torch "
@@ -502,8 +696,14 @@ class DataGraph:
 
         nbrs, mask, eids, is_src = _build_ell_vectorized(
             n_vertices, edges, md)
-        ell = build_sliced_ell(nbrs, mask, eids, is_src, pad_edge=ne,
-                               widths=bucket_widths, device=device)
+        if hub_split and w_cap is None:
+            w_cap = default_w_cap(np.maximum(deg, 1))
+        if hub_split and md > w_cap:
+            ell = build_split_ell(nbrs, mask, eids, is_src, pad_edge=ne,
+                                  w_cap=int(w_cap), device=device)
+        else:
+            ell = build_sliced_ell(nbrs, mask, eids, is_src, pad_edge=ne,
+                                   widths=bucket_widths, device=device)
         del nbrs, mask, eids, is_src
 
         edge_data = _tensor_dict(edge_data, device)

@@ -14,8 +14,10 @@ Array keys: ``nbrs.<b>``, ``nbr_mask.<b>``, ``edge_ids.<b>``,
 ``is_src.<b>`` per bucket ``b``; ``perm``, ``inv_perm``, ``degree``,
 ``edges``, ``edge_perm``, ``edge_inv_perm``, optionally ``colors``; and
 ``vertex.<name>`` / ``edge.<name>`` for the data (edge data includes
-the pad row).  Meta keys: ``n_vertices``, ``n_edges``, ``max_deg``,
-``widths``, ``starts``, ``pad_edge``.
+the pad row; a uint32 array arrives as int64 of the same values).  Meta keys: ``n_vertices``, ``n_edges``, ``max_deg``,
+``widths``, ``starts``, ``pad_edge``, ``w_cap`` (None unless the graph is
+hub-split) and ``n_chunks_max``; a split graph also carries the arrays
+``owner_of_vrow`` and ``vrow_offset``.
 
 Parameters: the reference's parameter pytree flattened to numpy arrays
 keyed by path (``embed``, ``final_norm``, ``out``, ``layers.norm1``,
@@ -38,10 +40,16 @@ from repro_torch.models.model import Model
 _BLOCKS = ("nbrs", "nbr_mask", "edge_ids", "is_src")
 
 
+def _widen_u32(a: np.ndarray) -> np.ndarray:
+    """uint32 arrays (the reference's Gibbs keys) as int64 holding the
+    same values: the port keeps 32-bit words in int64 (``apps.gibbs``)."""
+    return a.astype(np.int64) if a.dtype == np.uint32 else a
+
+
 def graph_from_arrays(arrays: dict, meta: dict, device=None) -> DataGraph:
     """A port ``DataGraph`` on ``device`` from exported arrays."""
     device = resolve_device(device)
-    up = lambda a: torch.from_numpy(np.array(a)).to(device)   # a writable copy
+    up = lambda a: torch.from_numpy(_widen_u32(np.array(a))).to(device)
     widths = tuple(int(w) for w in meta["widths"])
     starts = tuple(int(s) for s in meta["starts"])
     blocks = [[arrays[f"{f}.{b}"] for b in range(len(widths))]
@@ -51,7 +59,13 @@ def graph_from_arrays(arrays: dict, meta: dict, device=None) -> DataGraph:
         max_deg=int(meta["max_deg"]), pad_edge=int(meta["pad_edge"]),
         slots=flat_slots(blocks, starts, widths, int(meta["pad_edge"]),
                          device),
-        perm=up(arrays["perm"]), inv_perm=up(arrays["inv_perm"]))
+        perm=up(arrays["perm"]), inv_perm=up(arrays["inv_perm"]),
+        w_cap=None if meta.get("w_cap") is None else int(meta["w_cap"]),
+        n_chunks_max=int(meta.get("n_chunks_max", 1)),
+        owner_of_vrow=(up(arrays["owner_of_vrow"])
+                       if "owner_of_vrow" in arrays else None),
+        vrow_offset=(up(arrays["vrow_offset"])
+                     if "vrow_offset" in arrays else None))
     graph = DataGraph(
         n_vertices=int(meta["n_vertices"]), n_edges=int(meta["n_edges"]),
         max_deg=int(meta["max_deg"]), ell=ell, degree=up(arrays["degree"]),
@@ -79,12 +93,16 @@ def graph_to_arrays(graph: DataGraph) -> tuple[dict, dict]:
                   edge_inv_perm=graph.edge_inv_perm)
     if graph.colors is not None:
         arrays["colors"] = host(graph.colors)
+    if ell.is_split:
+        arrays.update(owner_of_vrow=host(ell.owner_of_vrow),
+                      vrow_offset=host(ell.vrow_offset))
     arrays.update({f"vertex.{k}": host(v)
                    for k, v in graph.vertex_data.items()})
     arrays.update({f"edge.{k}": host(v) for k, v in graph.edge_data.items()})
     meta = dict(n_vertices=graph.n_vertices, n_edges=graph.n_edges,
                 max_deg=graph.max_deg, widths=list(ell.widths),
-                starts=list(ell.starts), pad_edge=ell.pad_edge)
+                starts=list(ell.starts), pad_edge=ell.pad_edge,
+                w_cap=ell.w_cap, n_chunks_max=ell.n_chunks_max)
     return arrays, meta
 
 

@@ -440,10 +440,11 @@ def test_update_keeps_tf32_off_and_restores_the_setting(monkeypatch):
 
 
 def test_builders_name_the_ported_apps():
-    from repro_torch.apps import cc, coem, lbp
+    from repro_torch.apps import bptf, cc, coem, gibbs, lbp
     assert BUILDERS == {"pagerank": pagerank.build, "als": als.build,
                         "cc": cc.build, "coem": coem.build,
-                        "lbp": lbp.build}
+                        "lbp": lbp.build, "gibbs": gibbs.build,
+                        "bptf": bptf.build}
 
 
 def test_netflix_example_runs_on_cpu():

@@ -793,3 +793,111 @@ def test_gpu_coem_kernel_arm_equals_dense_arm(cuda, scheduler):
         assert gpu.n_updates == outs[0].n_updates
     torch.testing.assert_close(outs[0].vertex_data["p"].cpu(),
                                cpu.vertex_data["p"], rtol=0, atol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Hub splitting: the segmented sum, split PageRank, Gibbs keys
+# ----------------------------------------------------------------------
+
+def _segment_case(case, device):
+    """``(y, offsets)`` of a stress case of ``segment_sum_csr``."""
+    from repro_torch.kernels import segment_combine as sc
+    rng = np.random.default_rng(len(case))
+    n_rows, tail, feat = 300, 0, (4,)
+    lengths = rng.integers(0, 6, n_rows)
+    if case == "empty":
+        lengths[::2] = 0
+    elif case == "long":
+        lengths[7] = 5000            # longer than a block, many unrolls
+    elif case == "sentinel":
+        tail = 37
+    elif case == "f1":
+        feat = (1,)
+    elif case == "f400":
+        feat = (20, 20)
+    elif case == "f_odd":
+        feat = (7,)
+    seg = np.concatenate([np.repeat(np.arange(n_rows), lengths),
+                          np.full(tail, n_rows)])
+    y = rng.normal(size=(len(seg),) + feat).astype(np.float32)
+    if case == "negzero":
+        y[rng.random(y.shape) < 0.5] = -0.0
+        y[seg == 3] = -0.0
+    offsets = sc.segment_offsets(torch.from_numpy(seg), n_rows)
+    return torch.from_numpy(y).to(device), offsets.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["empty", "long", "sentinel", "negzero",
+                                  "f1", "f400", "f_odd"])
+def test_segment_sum_kernel_matches_plain_version_bitwise(cuda, case, dtype):
+    from repro_torch.kernels import segment_combine as sc
+    y, offsets = _segment_case(case, cuda)
+    y = y.to(dtype)
+    want = sc.segment_sum_csr_plain(y, offsets)
+    before = sc.segment_sum_csr.launches
+    got = sc.segment_sum_csr(y, offsets)
+    torch.cuda.synchronize()
+    assert sc.segment_sum_csr.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16
+                                 else torch.int32))
+    assert torch.equal(got.cpu(), sc.segment_sum_csr(y.cpu(), offsets.cpu()))
+
+
+@pytest.mark.cuda
+def test_segment_combine_on_card_takes_ids_in_any_order(cuda):
+    from repro_torch.kernels import segment_combine as sc
+    rng = np.random.default_rng(3)
+    seg = torch.from_numpy(rng.integers(0, 50, 3000))
+    y = torch.from_numpy(rng.normal(size=(3000, 5)).astype(np.float32))
+    before = sc.segment_sum_csr.launches
+    got = sc.segment_combine(y.to(cuda), seg.to(cuda), 40)
+    assert sc.segment_sum_csr.launches == before + 1
+    assert torch.equal(got.cpu(), sc.segment_combine(y, seg, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chromatic", "bsp", "priority", "locking"])
+def test_gpu_split_pagerank_equals_cpu_in_every_arm(cuda, name):
+    """PageRank on the 2k Zipf graph split at w_cap = 8: the four arms on
+    the card equal the CPU's run bitwise, and the combine runs through
+    the segment_combine kernel."""
+    from repro_torch.kernels import segment_combine as sc
+    edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
+    g, upd, syncs = pagerank.build(edges, 2000, eps=1e-4, w_cap=8,
+                                   device="cpu")
+    assert g.ell.is_split
+    opts = ({"num_supersteps": 10} if name in ("chromatic", "bsp") else
+            {"k_select": 64, "num_supersteps": 10} if name == "priority"
+            else {"max_pending": 64, "num_supersteps": 10})
+    cpu = api.run(g, upd, syncs=syncs, scheduler=name, device="cpu", **opts)
+    before = sc.segment_sum_csr.launches
+    for dispatch in ("bucket", "batch"):
+        for use_kernel in (True, False):
+            gpu = api.run(g, upd, syncs=syncs, scheduler=name, device=cuda,
+                          dispatch=dispatch, use_kernel=use_kernel, **opts)
+            assert torch.equal(gpu.vertex_data["rank"].cpu(),
+                               cpu.vertex_data["rank"]), (dispatch,
+                                                          use_kernel)
+            assert (gpu.superstep, gpu.n_updates) == (cpu.superstep,
+                                                      cpu.n_updates)
+    assert sc.segment_sum_csr.launches > before
+
+
+@pytest.mark.cuda
+def test_gibbs_keys_and_uniforms_on_card_equal_cpu(cuda):
+    from repro_torch.apps import gibbs
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy(rng.integers(0, 2 ** 32, (100_000, 2),
+                                      dtype=np.int64))
+    k[0] = torch.tensor([2 ** 32 - 1, 2 ** 32 - 1])
+    a, b = gibbs.split(k)
+    ga, gb = gibbs.split(k.to(cuda))
+    assert torch.equal(ga.cpu(), a) and torch.equal(gb.cpu(), b)
+    assert torch.equal(gibbs.uniform(gb).cpu(), gibbs.uniform(b))
+    assert torch.equal(gibbs.prng_key(torch.arange(1000, device=cuda)).cpu(),
+                       gibbs.prng_key(torch.arange(1000)))

@@ -181,12 +181,18 @@ def test_generators_match_reference():
     np.testing.assert_array_equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("kwargs,roadmap", [
-    ({"hub_split": True}, "A6"), ({"w_cap": 8}, "A6"),
-    ({"width_policy": "measured"}, "A6"), ({"slack": 2}, "A11")])
-def test_unported_storage_options_raise(kwargs, roadmap):
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"hub_split": True, "bucket_widths": (2, 4)}, ValueError,
+     "bucket_widths"),
+    ({"w_cap": 6}, ValueError, "power of two"),
+    ({"width_policy": "measured"}, NotImplementedError, "A8"),
+    ({"slack": 2}, NotImplementedError, "A11")])
+def test_unported_storage_options_raise(kwargs, error, match):
+    """Hub splitting is ported: its illegal values and combinations raise
+    the reference's ValueErrors.  Measured width plans (A8) and slack
+    (A11) are not ported and say which ROADMAP item they wait for."""
     edges = random_graph(20, 40)
-    with pytest.raises(NotImplementedError, match=roadmap):
+    with pytest.raises(error, match=match):
         graph.DataGraph.from_edges(20, edges, {"x": np.zeros(20)},
                                    device="cpu", **kwargs)
 

@@ -20,13 +20,17 @@ def reference_arrays(g) -> tuple[dict, dict]:
                   edge_perm=g.edge_perm, edge_inv_perm=g.edge_inv_perm)
     if g.colors is not None:
         arrays["colors"] = host(g.colors)
+    if ell.w_cap is not None:
+        arrays.update(owner_of_vrow=host(ell.owner_of_vrow),
+                      vrow_offset=host(ell.vrow_offset))
     arrays.update({f"vertex.{k}": host(v)
                    for k, v in jax.tree.map(host, g.vertex_data).items()})
     arrays.update({f"edge.{k}": host(v)
                    for k, v in jax.tree.map(host, g.edge_data).items()})
     meta = dict(n_vertices=g.n_vertices, n_edges=g.n_edges,
                 max_deg=g.max_deg, widths=list(ell.widths),
-                starts=list(ell.starts), pad_edge=ell.pad_edge)
+                starts=list(ell.starts), pad_edge=ell.pad_edge,
+                w_cap=ell.w_cap, n_chunks_max=ell.n_chunks_max)
     return arrays, meta
 
 
