@@ -154,7 +154,30 @@ Phases (any failure exits non-zero and prints no result):
                  (movies first) and MapReduce CoEM against phase 13's
                  chromatic CoEM; ms per superstep or iteration, peak
                  memory and one superstep's layers and idle share each;
-17. report     — a ``{"kernels": [...]}`` line, then the contract line
+17. facade and cost model — at full size, the launch counts set to 0
+                 just before each run and read just after: (a) the
+                 calibration (``repro_torch.profile.calibrate``) on phase
+                 4's graph, every bucket width at B = 512, 4,096, 32,768
+                 and 262,144, the bucket sweep and the sync slope, its
+                 model and trace round-tripping through JSON, each
+                 width's fit printed against its points and the sweep
+                 against ``predict_launches``; (b) CC under priority and
+                 locking and CoEM under priority (window 32,768, 20
+                 supersteps) with each arm forced and with
+                 ``dispatch="auto"`` under the model, which must equal the
+                 arm it chose bitwise; (c) ``api.run(profile=True)`` on
+                 CC priority (drained) and CC locking (200 supersteps):
+                 one step record a superstep, cold flags, bitwise a plain
+                 run; (d) ``trace=True`` and ``until=`` on phase 4's
+                 PageRank against the stepped engine and a
+                 ``num_supersteps`` run; (e) ``width_policy="measured"``
+                 under the model on phase 4's edges, every candidate's
+                 predicted sweep beside the measured sweeps, PageRank to
+                 convergence on it with phase 4's checks; (f) the
+                 sequential oracle on the 2k Zipf graph GPU == CPU ==
+                 ``run_sequential``, CC locking under
+                 ``consistency="full"`` and ``"vertex"`` == union-find;
+18. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -1653,27 +1676,30 @@ def setup_schedulers(torch, ctx):
     ctx.update(cc_graph=g, ner=ner, coseg=coseg)
 
 
-def window_case(torch, label, ell, width, w_edge, x, gen, flush):
+def window_case(torch, label, ell, width, w_edge, x, gen, flush, ids=None,
+                timed=True):
     """``ell_spmv_batched`` on a ``[WINDOW, W]`` window gathered at scope
     width ``W`` from rows drawn uniformly among the buckets up to W (as a
     priority window snapped to W holds them; on a split graph, among the
-    owners of one virtual row), against its plain version (bitwise), one
+    owners of one virtual row), or on the window ``ids`` when given,
+    against its plain version (bitwise); when ``timed``, also one
     ``torch.sparse.mm`` on its CSR and its bound."""
     from repro_torch.kernels.ell_spmv import ell_spmv_batched, ell_spmv_plain
     dev = x.device
     b = ell.widths.index(width)
-    pos = torch.arange(ell.starts[b + 1], device=dev)   # bucketed positions
-    pool = ell.perm[pos].long()
-    if ell.is_split:
-        pool = ell.owner_of_vrow[pool].long()
-        off = ell.vrow_offset
-        single = (off[pool + 1] - off[pool]) == 1
-        pos, pool = pos[single], pool[single]
-    pick = torch.randperm(pos.numel(), generator=gen, device=dev)[:WINDOW]
-    if not bool((pos[pick] >= ell.starts[b]).any()):
-        # a row of width W's own bucket
-        pick[0] = int(torch.nonzero(pos >= ell.starts[b])[0])
-    ids = pool[pick].to(torch.int32)
+    if ids is None:
+        pos = torch.arange(ell.starts[b + 1], device=dev)   # bucketed rows
+        pool = ell.perm[pos].long()
+        if ell.is_split:
+            pool = ell.owner_of_vrow[pool].long()
+            off = ell.vrow_offset
+            single = (off[pool + 1] - off[pool]) == 1
+            pos, pool = pos[single], pool[single]
+        pick = torch.randperm(pos.numel(), generator=gen, device=dev)[:WINDOW]
+        if not bool((pos[pick] >= ell.starts[b]).any()):
+            # a row of width W's own bucket
+            pick[0] = int(torch.nonzero(pos >= ell.starts[b])[0])
+        ids = pool[pick].to(torch.int32)
     every = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
     if ell.window_bucket(ids, every) != b:
         raise AssertionError(f"{label}: the window does not need width "
@@ -1690,6 +1716,9 @@ def window_case(torch, label, ell, width, w_edge, x, gen, flush):
     if mism:
         raise AssertionError(f"{label}: {mism} f32 elements differ from "
                              f"the plain version (max {err})")
+    if not timed:
+        return dict(label=label, rows=ids.numel(), width=width,
+                    max_abs_err=err)
     csr = csr_of(torch, [(r.nbrs, w, r.nbr_mask, mask)], x.shape[0])
     lib_err = float((torch.sparse.mm(csr, x) - y).abs().max())
     ms, call_ms = time_cuda(torch, lambda: ell_spmv_batched(*args), 20, flush)
@@ -2979,6 +3008,344 @@ def bptf_main(torch, ctx, np, api, bptf, count):
     release(torch, ctx, "bptf")
 
 
+# ----------------------------------------------------------------------
+# Phase 17: the facade, profiling and the fitted cost model
+# ----------------------------------------------------------------------
+
+# calibration: B = 32,768 is the window engines' k (WINDOW)
+CAL_BATCHES = (512, 4096, WINDOW, 262_144)
+CAL_ITERS = 5
+DISPATCH_STEPS = 20            # each arm of (b)'s window runs
+LOCKING_PROFILE_STEPS = 200    # (c)'s profiled CC locking: fit points
+TRACE_STEPS = 8                # (d)'s traced PageRank
+UNTIL_AT = 5                   # (d) stops after this superstep's sync
+SEQ_SUPERSTEPS = 3             # (f)'s oracle budget on the 2k graph
+
+
+def same_run(torch, a, b):
+    """Bitwise equal vertex data, updates and supersteps."""
+    return (a.vertex_data.keys() == b.vertex_data.keys()
+            and all(torch.equal(a.vertex_data[k], b.vertex_data[k])
+                    for k in a.vertex_data)
+            and (a.n_updates, a.superstep) == (b.n_updates, b.superstep))
+
+
+def phase_facade(torch, ctx):
+    """The facade and the cost model at full size: (a) calibration on
+    phase 4's graph, (b) dispatch under the model, (c) profiled runs,
+    (d) until= and trace=, (e) the measured width plan, (f) the oracle
+    and consistency= on the card.  The model and trace go to a temporary
+    directory through ``REPRO_TORCH_RESULTS_DIR``."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_RESULTS_DIR"] = tmp
+        try:
+            facade_parts(torch, ctx)
+        finally:
+            os.environ.pop("REPRO_TORCH_RESULTS_DIR", None)
+
+
+def facade_parts(torch, ctx):
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.apps import cc, coem, pagerank
+    from repro_torch.core.engine_sequential import run_sequential
+    from repro_torch.core.exec import choose_dispatch
+    from repro_torch.core.graph import (DataGraph, candidate_width_plans,
+                                        choose_width_plan, zipf_edges)
+    from repro_torch.core.update import Consistency
+    from repro_torch.profile import (CostModel, calibrate, fit_cost_model,
+                                     load_cost_model, load_trace)
+    dev = ctx["dev"]
+    total = ctx["launches"]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def counted(fn, count=True):
+        """``fn()`` counted; ``count=False`` keeps its launches out of the
+        report (runs that only compare the arms)."""
+        out, wall, _, counts = split_counts(torch, fn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + (v if count else 0)
+        return out, wall, counts
+
+    # (a) calibration on phase 4's graph
+    t0 = time.perf_counter()
+    edges = ctx["zipf_edges"]
+    g, upd, syncs = pagerank.build(edges, FULL_N, eps=EPS,
+                                   colors=ctx["zipf_colors"], device=dev)
+    torch.cuda.synchronize()
+    log(f"(a) PageRank graph rebuilt with phase 4's colors: "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (rec, model), wall, counts = counted(lambda: calibrate.calibrate_graph(
+        g, CAL_BATCHES, iters=CAL_ITERS, seed=0, emit=lambda *_: None))
+    if counts["ell_spmv"] <= 0:
+        raise AssertionError("calibration never launched ell_spmv")
+    tpath, mpath = rec.save(), model.save()
+    back, back_rec = CostModel.load(mpath), load_trace(tpath)
+    if (back != model or back_rec.records != rec.records
+            or fit_cost_model(back_rec.records, device=dev.type) != model
+            or load_cost_model(dev.type) != model):
+        raise AssertionError("the saved model or trace does not round-trip")
+    log(f"(a) calibration: {len(rec.records)} records in {wall:.1f} s, "
+        f"launches {counts}; {mpath.name} and {tpath.name} round-trip")
+    for w, (a, b) in sorted(model.coef.items()):
+        log(f"  W = {w:>3}: a_W = {a:10.2f} us, b_W = {1e3 * b:9.4f} ns "
+            f"a slot")
+    a, b = model.pooled
+    log(f"  pooled: a = {a:.2f} us, b = {1e3 * b:.4f} ns a slot; sync "
+        f"slope {1e3 * model.sync_cost_us:.4f} ns a row")
+    for r in rec.records:
+        if r["kind"] == "launch":
+            fit = model.predict(r["width"], r["rows"])
+            log(f"  W = {r['width']:>3}, B = {r['rows']:>7}: measured "
+                f"{r['wall_us']:10.1f} us, fit {fit:10.1f} us "
+                f"({r['wall_us'] / fit:.3f})")
+        elif r["kind"] == "step":
+            pred = model.predict_launches(g.ell.bucket_launches)
+            log(f"  bucket sweep (apply_batch over all {FULL_N} ids): "
+                f"measured {r['wall_us']:.1f} us, predict_launches "
+                f"{pred:.1f} us ({r['wall_us'] / pred:.3f})")
+        else:
+            log(f"  sync, {r['rows']} rows: {r['wall_us']:.1f} us")
+    # B1 at every calibration window, on the same ids, bitwise
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x1 = torch.rand((FULL_N, 1), generator=gen, device=dev) + 0.5
+    b1_cases = []
+    for b, w in enumerate(g.ell.widths):
+        for n_ids, ids in calibrate._bucket_windows(g.ell, b, CAL_BATCHES, 0):
+            b1_cases.append(window_case(
+                torch, f"calibration window W={w} B={n_ids}", g.ell, w,
+                g.edge_data["w"], x1, gen, flush, ids=ids, timed=False))
+    log(f"(a) B1 at the {len(b1_cases)} calibration windows [B, W] (up to "
+        f"{max(c['rows'] * c['width'] for c in b1_cases)} slots): bitwise "
+        "the plain version")
+
+    # (b) dispatch under the model: static rule vs the model
+    ner = ctx["ner"]
+    cg, cupd, csyncs = coem.build(ner, eps=COEM_EPS)
+    for label, gg, u, s, sched, opts in (
+            ("CC priority", ctx["cc_graph"], cc.make_update(), (),
+             "priority", {"k_select": WINDOW}),
+            ("CC locking", ctx["cc_graph"], cc.make_update(), (),
+             "locking", {"max_pending": WINDOW}),
+            ("CoEM priority", cg, cupd, csyncs, "priority",
+             {"k_select": WINDOW})):
+        ell = gg.ell
+        static = choose_dispatch("auto", WINDOW, ell.widths[-1],
+                                 ell.padded_slots)
+        chosen = choose_dispatch("auto", WINDOW, ell.widths[-1],
+                                 ell.padded_slots, cost_model=model,
+                                 bucket_launches=ell.bucket_launches)
+        runs, ms = {}, {}
+        for arm in ("bucket", "batch", "auto"):
+            kw = ({"cost_model": model} if arm == "auto" else {})
+            runs[arm], wall, _ = counted(lambda: api.run(
+                gg, u, syncs=s, scheduler=sched, dispatch=arm,
+                num_supersteps=DISPATCH_STEPS, device=dev, **opts, **kw),
+                count=arm == "auto")
+            ms[arm] = 1e3 * wall / DISPATCH_STEPS
+        faster = min(("bucket", "batch"), key=ms.get)
+        log(f"(b) {label} ({DISPATCH_STEPS} supersteps): static rule "
+            f"{static}, model {chosen} (predicted batch "
+            f"{model.predict(ell.widths[-1], WINDOW):.1f} us, bucket "
+            f"{model.predict_launches(ell.bucket_launches):.1f} us a "
+            f"phase); ms/superstep bucket {ms['bucket']:.2f}, batch "
+            f"{ms['batch']:.2f}, auto with the model {ms['auto']:.2f}; "
+            f"faster arm {faster}, the model "
+            f"{'picked it' if chosen == faster else 'did not'}")
+        if runs["auto"].engine.resolve_dispatch(WINDOW) != chosen:
+            raise AssertionError(f"{label}: the engine did not take the "
+                                 "model's choice")
+        if not same_run(torch, runs["auto"], runs[chosen]):
+            raise AssertionError(f"{label}: auto under the model != the "
+                                 f"forced {chosen} arm")
+        if not same_run(torch, runs["bucket"], runs["batch"]):
+            raise AssertionError(f"{label}: the two arms differ")
+    del runs, cg, cupd, csyncs
+
+    # (c) profiled runs: CC priority to the drain, CC locking's fit points
+    truth = ctx["cc_truth"]
+    for label, sched, opts in (
+            ("CC priority", "priority",
+             {"k_select": WINDOW, "max_supersteps": CC_MAX_SUPERSTEPS}),
+            ("CC locking", "locking",
+             {"max_pending": WINDOW,
+              "num_supersteps": LOCKING_PROFILE_STEPS})):
+        prof, p_wall, _ = counted(lambda: api.run(
+            ctx["cc_graph"], cc.make_update(), scheduler=sched,
+            profile=True, device=dev, **opts))
+        plain, wall, _ = counted(lambda: api.run(
+            ctx["cc_graph"], cc.make_update(), scheduler=sched, device=dev,
+            **opts))
+        steps = [r for r in prof.profile.records if r["kind"] == "step"]
+        seen, cold_ok = set(), True
+        for r in steps:
+            key = (r["mode"], r.get("width"), r.get("rows"))
+            cold_ok &= r["cold"] == (key not in seen)
+            seen.add(key)
+        fit = fit_cost_model(prof.profile.records, device=dev.type)
+        warm = [r["wall_us"] for r in steps if not r["cold"]]
+        log(f"(c) {label} profiled: {len(steps)} step records for "
+            f"{prof.superstep} supersteps, {len(seen)} shapes (cold "
+            f"{sum(r['cold'] for r in steps)}), warm median "
+            f"{np.median(warm) / 1e3:.3f} ms a step; wall {p_wall:.3f} s "
+            f"profiled vs {wall:.3f} s plain ({p_wall / wall:.3f}x); "
+            f"fit: {len(fit.coef)} widths from {fit.n_records} points "
+            + ", ".join(f"W={w}: ({a:.1f} us, {1e3 * b:.3f} ns)"
+                        for w, (a, b) in sorted(fit.coef.items())))
+        if len(steps) != prof.superstep or not cold_ok:
+            raise AssertionError(f"{label}: {len(steps)} step records for "
+                                 f"{prof.superstep} supersteps, cold flags "
+                                 f"right {cold_ok}")
+        if not same_run(torch, prof, plain) or not isinstance(fit,
+                                                              CostModel):
+            raise AssertionError(f"{label}: profiled run != plain run")
+        if sched == "priority" and (prof.active_any or not np.array_equal(
+                prof.vertex_data["label"].cpu().numpy(), truth)):
+            raise AssertionError("CC priority profiled: not union-find")
+    del prof, plain
+
+    # (d) until= and trace= on phase 4's PageRank
+    tr, wall, _ = counted(lambda: api.run(
+        g, upd, syncs=syncs, trace=True, num_supersteps=TRACE_STEPS,
+        device=dev))
+    eng = tr.engine
+    state = eng.init_state()
+    totals = [float(state.globals["total_rank"])]     # before superstep 1
+    for r in tr.trace:
+        state = eng._superstep(state)
+        if (r["superstep"], r["n_updates"], r["active"]) != (
+                state.superstep, int(state.n_updates),
+                int(state.active.sum())):
+            raise AssertionError(f"trace record {r['superstep']} != the "
+                                 "engine's state")
+    if (len(tr.trace) != TRACE_STEPS
+            or not torch.equal(state.vertex_data["rank"],
+                               tr.vertex_data["rank"])):
+        raise AssertionError("trace=True changed the run")
+    totals += [float(r["globals"]["total_rank"]) for r in tr.trace]
+    # termination by sync on the value the trace saw after superstep
+    # UNTIL_AT (the total is not monotone from all-ones ranks, so a
+    # threshold could bind earlier): the run must stop there, bitwise
+    target = totals[UNTIL_AT]
+    expect = totals.index(target)
+    pred = lambda gl: float(gl["total_rank"]) == target
+    res_u, _, _ = counted(lambda: api.run(g, upd, syncs=syncs, until=pred,
+                                          device=dev))
+    res_e, _, _ = counted(lambda: api.run(
+        g, upd, syncs=syncs, num_supersteps=res_u.superstep, device=dev))
+    log(f"(d) trace=True: {len(tr.trace)} records, counts equal the "
+        f"engine's stepped state; total_rank {totals[0]:.1f} ... "
+        f"{totals[-1]:.1f}; until total_rank == {target!r} stopped after "
+        f"superstep {res_u.superstep} (expected {expect}); bitwise the "
+        f"num_supersteps={res_u.superstep} run: "
+        f"{same_run(torch, res_u, res_e)}")
+    if res_u.superstep != expect or not same_run(torch, res_u, res_e):
+        raise AssertionError("until= did not stop where a num_supersteps "
+                             "run of the same length ends")
+    del tr, res_u, res_e, state
+
+    # (e) the measured width plan on phase 4's edges
+    deg = (np.bincount(edges[:, 0], minlength=FULL_N)
+           + np.bincount(edges[:, 1], minlength=FULL_N))
+    loops = np.bincount(edges[edges[:, 0] == edges[:, 1], 0],
+                        minlength=FULL_N)
+    cnt, md = deg - loops, int(deg.max())
+    plan = choose_width_plan(cnt, md, model)
+    for cand in candidate_width_plans(cnt, md):
+        log(f"(e) candidate w_cap={cand['w_cap']}: predicted sweep "
+            f"{model.predict_launches(cand['launches']):.1f} us, "
+            f"{sum(w * r for w, r in cand['launches'])} slots"
+            + ("  <- chosen" if cand == plan else ""))
+    t0 = time.perf_counter()
+    gm = DataGraph.from_edges(
+        FULL_N, edges, vertex_data={"rank": np.ones(FULL_N, np.float32)},
+        edge_data={"w": pagerank.edge_weights(edges, FULL_N)},
+        edge_locality=False, width_policy="measured", cost_model=model,
+        device=dev).with_colors(ctx["zipf_colors"])
+    torch.cuda.synchronize()
+    stored = tuple((w, r) for w, r in gm.ell.bucket_launches if r)
+    log(f"(e) measured layout built in {time.perf_counter() - t0:.1f} s: "
+        f"split {gm.ell.is_split}, w_cap {gm.ell.w_cap}, widths "
+        f"{gm.ell.widths}; stored launches == the plan's "
+        f"{stored == tuple(plan['launches'])}")
+    if gm.ell.is_split != plan["hub_split"] or gm.ell.w_cap != plan["w_cap"]:
+        raise AssertionError("from_edges did not build the chosen plan")
+    for label, gg in (("unsplit", g), ("chosen", gm)):
+        sweep = calibrate._batch_fn(gg, upd, torch.arange(
+            FULL_N, dtype=torch.int32, device=dev), "bucket")
+        wall_us = calibrate._time_us(sweep, gg.vertex_data, device=dev,
+                                     iters=CAL_ITERS)
+        case = sweep_case(torch, f"(e) {label} layout B1 sweep F=1", gg.ell,
+                          gg.edge_data["w"], x1, gen, flush)
+        b1_cases.append(case)
+        log(f"(e) {label} layout: B1 sweep {case['ms']:.4f} ms (one "
+            f"launch, bitwise the plain version), apply_batch bucket sweep "
+            f"{wall_us:.1f} us, predicted "
+            f"{model.predict_launches(gg.ell.bucket_launches):.1f} us")
+    if gm.ell.is_split:
+        # B2: the split sweep's owner combine at the chosen w_cap
+        y = torch.rand((gm.ell.n_virtual, 1), generator=gen, device=dev)
+        ctx["split_seg_cases"].append(segment_case(
+            torch, f"(e) owner combine w_cap={gm.ell.w_cap} F=1", y,
+            gm.ell.vrow_offset, flush))
+        del y
+    del x1
+    ctx["facade_b1_cases"] = b1_cases
+    res, wall, counts = counted(lambda: api.run(gm, upd, syncs=syncs,
+                                                device=dev))
+    log(f"(e) PageRank on the measured layout: {res.superstep} supersteps, "
+        f"{res.n_updates} updates, {wall:.3f} s "
+        f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), "
+        f"launches {counts}")
+    if counts["ell_spmv"] <= 0:
+        raise AssertionError("PageRank on the measured layout never "
+                             "launched ell_spmv")
+    check_pagerank(np, res, edges, "measured layout")
+    del res, gm, g, upd, syncs
+
+    # (f) the oracle and consistency= on the 2k Zipf graph
+    n = 2000
+    edges2 = zipf_edges(n, alpha=2.0, max_deg=64, seed=1)
+    g2, upd2, _ = cc.build(edges2, n, device="cpu")
+    t0 = time.perf_counter()
+    gpu = api.run(g2, upd2, scheduler="sequential",
+                  max_supersteps=SEQ_SUPERSTEPS, device=dev)
+    t1 = time.perf_counter()
+    cpu = api.run(g2, upd2, scheduler="sequential",
+                  max_supersteps=SEQ_SUPERSTEPS, device="cpu")
+    vd, _, _, n_upd = run_sequential(g2, upd2,
+                                     max_supersteps=SEQ_SUPERSTEPS)
+    same = (torch.equal(gpu.vertex_data["label"].cpu(),
+                        cpu.vertex_data["label"])
+            and torch.equal(cpu.vertex_data["label"], vd["label"])
+            and gpu.n_updates == cpu.n_updates == n_upd
+            and gpu.superstep is None and gpu.active_any == cpu.active_any)
+    log(f"(f) sequential oracle, 2k CC, {SEQ_SUPERSTEPS} supersteps: "
+        f"{gpu.n_updates} updates, GPU == CPU == run_sequential {same} "
+        f"({t1 - t0:.1f} s on the GPU)")
+    if not same:
+        raise AssertionError("the oracle on the GPU != on the CPU")
+    truth2 = cc.reference_components(edges2, n)
+    for cons in ("full", "vertex"):
+        res = api.run(g2, upd2, scheduler="locking", max_pending=64,
+                      consistency=cons, max_supersteps=CC_MAX_SUPERSTEPS,
+                      device=dev)
+        ok = (res.engine.update_fn.consistency == Consistency(cons)
+              and not res.active_any
+              and np.array_equal(res.vertex_data["label"].cpu().numpy(),
+                                 truth2))
+        log(f"(f) CC locking consistency={cons}: {res.superstep} "
+            f"supersteps, {res.n_updates} updates, == union-find {ok}")
+        if not ok:
+            raise AssertionError(f"CC locking consistency={cons} != "
+                                 "union-find")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -3060,7 +3427,8 @@ def main() -> int:
                      ("phase 14 split kernels", phase_split_kernels),
                      ("phase 15 split and app parity", phase_split_parity),
                      ("phase 16 split and apps main path",
-                      phase_split_main)):
+                      phase_split_main),
+                     ("phase 17 facade and cost model", phase_facade)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:
@@ -3081,7 +3449,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
         "replaces": "src/repro/kernels/ell_spmv.py:48",
         "launches": ctx["launches"]["ell_spmv"],
-        "max_abs_err": ctx["kernel_max_err"],
+        "max_abs_err": max([ctx["kernel_max_err"]] + [
+            c["max_abs_err"] for key in ("sched_kernel_cases",
+                                         "split_b1_cases", "facade_b1_cases")
+            for c in ctx[key]]),
         **{k: sweep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
     }]

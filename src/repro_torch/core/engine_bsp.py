@@ -19,14 +19,18 @@ from repro_torch.core.update import UpdateFn
 
 def bsp_engine(graph: DataGraph, update_fn: UpdateFn,
                syncs: Sequence[SyncOp] = (), max_supersteps: int = 100,
-               use_kernel: bool = True,
-               dispatch: str = "bucket") -> ChromaticEngine:
+               use_kernel: bool = True, dispatch: str = "bucket",
+               cost_model=None) -> ChromaticEngine:
     """Strategy: one phase holding every active vertex (trivial color).
     The phase batches the whole graph, so every bucket's rows is the
     natural launch shape."""
     g = graph.with_colors(single_color(graph.n_vertices))
     return ChromaticEngine(g, update_fn, syncs, max_supersteps,
-                           use_kernel=use_kernel, dispatch=dispatch)
+                           use_kernel=use_kernel, dispatch=dispatch,
+                           cost_model=cost_model)
 
 
-register_scheduler("bsp", bsp_engine)
+register_scheduler(
+    "bsp", bsp_engine,
+    description="bulk-synchronous Jacobi sweeps (single trivial color); "
+                "NOT sequentially consistent — the Fig. 1 baseline")

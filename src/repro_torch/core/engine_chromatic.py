@@ -42,4 +42,7 @@ class ChromaticEngine(ExecutorCore):
         return self._color_ids[c], self._color_valid[c]
 
 
-register_scheduler("chromatic", ChromaticEngine, needs_colors=True)
+register_scheduler(
+    "chromatic", ChromaticEngine, needs_colors=True,
+    description="static per-color sweeps (§4.2.1); sequentially "
+                "consistent for the coloring's consistency model")

@@ -87,4 +87,8 @@ class LockingEngine(ExecutorCore):
         return ctx
 
 
-register_scheduler("locking", LockingEngine, extras=("max_pending",))
+register_scheduler(
+    "locking", LockingEngine, extras=("max_pending",),
+    description="pipelined reader/writer lock engine (§4.2.2): "
+                "max_pending window + min-id claim winners; needs no "
+                "coloring")

@@ -51,5 +51,8 @@ class PriorityEngine(ExecutorCore):
         return float(state.superstep + 1) if self.fifo else None
 
 
-register_scheduler("priority", PriorityEngine, needs_colors=True,
-                   extras=("k_select", "fifo"))
+register_scheduler(
+    "priority", PriorityEngine, extras=("k_select", "fifo"),
+    needs_colors=True,
+    description="top-k priority window executed color by color — the "
+                "analogue of the paper's prioritized scheduling")

@@ -19,6 +19,9 @@ The oracle replays each engine's RemoveNext policy (§3.4):
 * ``snapshot_phases`` — every phase's scopes are gathered from a
   snapshot taken at phase start: with the single coloring, the BSP
   engine's Jacobi semantics.
+
+``SequentialEngine`` puts the oracle behind the facade as the
+``"sequential"`` scheduler.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import DataGraph
+from repro_torch.core.registry import register_scheduler
 from repro_torch.core.sync import SyncOp
 from repro_torch.core.update import (Consistency, UpdateFn, gather_scopes,
                                      scatter_result)
@@ -155,3 +159,48 @@ def run_sequential(
     if return_active:
         return vdata, edata, globals_, n_updates, act
     return vdata, edata, globals_, n_updates
+
+
+class SequentialEngine:
+    """The oracle as a registered strategy behind ``repro_torch.api``:
+    ``scheduler="sequential"`` builds one, with the same keywords as the
+    engines it replays (``k_select`` the priority engine's RemoveNext,
+    ``max_pending`` the locking engine's pending window,
+    ``snapshot_phases`` the BSP engine's Jacobi semantics).  Stateless
+    across runs, like ``run_sequential``."""
+
+    def __init__(self, graph: DataGraph, update_fn: UpdateFn,
+                 syncs: Sequence[SyncOp] = (), max_supersteps: int = 100,
+                 k_select: int | None = None,
+                 max_pending: int | None = None,
+                 snapshot_phases: bool = False):
+        self.graph = graph
+        self.update_fn = update_fn
+        self.syncs = syncs
+        self.max_supersteps = max_supersteps
+        self.k_select = k_select
+        self.max_pending = max_pending
+        self.snapshot_phases = snapshot_phases
+
+    def run(self, active=None, num_supersteps: int | None = None,
+            until=None):
+        """``run_sequential``'s ``(vertex_data, edge_data, globals,
+        n_updates)`` plus the final task mask."""
+        steps = (num_supersteps if num_supersteps is not None
+                 else self.max_supersteps)
+        return run_sequential(
+            self.graph, self.update_fn, syncs=self.syncs, active=active,
+            max_supersteps=steps, k_select=self.k_select,
+            locking_pending=self.max_pending,
+            snapshot_phases=self.snapshot_phases, until=until,
+            return_active=True)
+
+
+register_scheduler(
+    "sequential", SequentialEngine,
+    shared=("max_supersteps",),
+    extras=("k_select", "max_pending", "snapshot_phases"),
+    stepping=False,
+    description="one-task-at-a-time oracle (Def. 3.1); replays "
+                "chromatic / priority (k_select) / locking (max_pending) "
+                "/ BSP (snapshot_phases) RemoveNext orders")

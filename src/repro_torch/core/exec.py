@@ -16,8 +16,10 @@ The port of ``repro.core.exec``:
   distributed engine, wait for ROADMAP A9);
 * ``choose_dispatch`` / ``switch_on_window_width`` — the launch shape
   of a phase: every bucket's rows (``"bucket"``), or the window alone at
-  its snapped width ``[B, W]`` (``"batch"``), chosen on the host by one
-  ``.item()`` a phase where the reference uses ``lax.switch``;
+  its snapped width ``[B, W]`` (``"batch"``), priced by the static
+  slot-count rule or a fitted cost model (``repro_torch.profile``); the
+  width is chosen on the host by one ``.item()`` a phase where the
+  reference uses ``lax.switch``;
 * ``dispatch_update`` — scope materialization and update dispatch:
   dense scopes, or the aggregator fast path through the ``ell_spmv``
   CUDA kernel (one launch over every degree bucket, or one ``[B, W]``
@@ -27,19 +29,20 @@ The port of ``repro.core.exec``:
 * ``ExecutorCore`` — a host loop over supersteps that ends when the
   task set drains or ``max_supersteps`` is reached.  A concrete engine
   implements the scheduling strategy: ``prepare`` once a superstep,
-  ``select`` for each phase, and optionally ``nbr_stamp``.
+  ``select`` for each phase, and optionally ``nbr_stamp``;
+  ``profile_probe`` reports the launch shape of a state's first phase
+  for ``api.run(profile=True)``.
 
 On a hub-split graph both dispatch shapes run stage 1 over virtual rows
 (``[Nv_b, W_b]`` bucket blocks, or ``[B*s, w_cap]`` chunk pseudo-rows of
 a window wider than ``w_cap``) and stage 2, the sum of each owner's
 partials, through the ``segment_combine`` CUDA kernel
 (``segment_sum_csr``), one combine shared by the kernel and dense arms.
-The fitted cost model is not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -239,34 +242,43 @@ def adjacent_claim_winners(struct, ids, sel, claim, rows=None):
 DISPATCH_MODES = ("auto", "bucket", "batch")
 
 
-def validate_dispatch(mode: str) -> None:
-    """Reject an unknown dispatch string when an engine is built."""
-    if mode not in DISPATCH_MODES:
+def validate_dispatch(mode: str | None) -> None:
+    """Reject an unknown dispatch string when an engine is built
+    (``None`` is the reference's other spelling of ``"auto"``)."""
+    if mode not in (None,) + DISPATCH_MODES:
         raise ValueError(
             f"unknown dispatch mode {mode!r}: expected one of "
             f"{DISPATCH_MODES} (DESIGN.md §8)")
 
 
-def choose_dispatch(mode: str, batch_size: int, max_deg: int,
-                    sliced_slots: int, cost_model=None) -> str:
+def choose_dispatch(mode: str | None, batch_size: int, max_deg: int,
+                    sliced_slots: int, cost_model=None,
+                    bucket_launches=None) -> str:
     """Resolve a dispatch mode to ``"bucket"`` or ``"batch"``.
 
     ``"bucket"`` launches every bucket's rows (``sliced_slots`` slots, the
     sweep engines' shape); ``"batch"`` gathers the window at its snapped
     width and launches once at ``[B, W]`` (the window engines' shape).
-    ``"auto"`` is the reference's static rule: batch iff the window at
-    the widest bucket width (callers pass ``ell.widths[-1]``) has fewer
-    slots than the sweep.  Both shapes give bitwise-equal results.  A
-    fitted ``cost_model`` is not ported (ROADMAP A8): only ``None`` is
-    accepted.
+    ``"auto"`` (or ``None``) without a model is the reference's static
+    rule: batch iff the window at the widest bucket width (callers pass
+    ``ell.widths[-1]``) has fewer slots than the sweep.  With a fitted
+    ``cost_model`` the same two candidates are priced in measured
+    microseconds: one ``[B, widths[-1]]`` batch launch against the
+    bucket path's launch sequence (``bucket_launches``).  Either side
+    predicting ``None`` falls back to the static rule, so a run with no
+    model, or an empty one, chooses as before.  Both shapes give
+    bitwise-equal results: the choice moves time, never an answer.
     """
-    if cost_model is not None:
-        raise ValueError("cost_model= is not ported to repro_torch yet "
-                         "(ROADMAP A8): dispatch='auto' uses the static "
-                         "slot-count rule")
     if mode in ("bucket", "batch"):
         return mode
+    # same legal-set error text as construction-time validation
     validate_dispatch(mode)
+    if cost_model is not None:
+        t_batch = cost_model.predict(max_deg, batch_size)
+        t_bucket = (None if bucket_launches is None
+                    else cost_model.predict_launches(bucket_launches))
+        if t_batch is not None and t_bucket is not None:
+            return "batch" if t_batch < t_bucket else "bucket"
     return "batch" if batch_size * max_deg < sliced_slots else "bucket"
 
 
@@ -522,10 +534,16 @@ class ExecutorCore:
     max_supersteps: int = 100
     use_kernel: bool = True                 # aggregator kernel path on?
     # launch shape of a phase: "bucket" (every bucket's rows), "batch"
-    # (the window at its snapped width) or "auto" (choose_dispatch's
-    # static rule).  Sweep strategies (chromatic, BSP) pin "bucket";
-    # the window strategies (priority, locking) keep "auto".
-    dispatch: str = "auto"
+    # (the window at its snapped width) or "auto" / None (choose_dispatch:
+    # the static rule, or cost_model's prices).  Sweep strategies
+    # (chromatic, BSP) pin "bucket"; the window strategies (priority,
+    # locking) keep "auto".
+    dispatch: str | None = "auto"
+    # fitted launch-time model consulted by dispatch="auto" (a
+    # repro_torch.profile.CostModel or anything with its predict
+    # surface); None keeps the static slot-count rule.  It moves the
+    # launch shape only, never a result.
+    cost_model: Any = None
     n_phases: int = dataclasses.field(init=False, default=1)
 
     def __post_init__(self):
@@ -546,10 +564,37 @@ class ExecutorCore:
 
     def resolve_dispatch(self, batch_size: int) -> str:
         """This engine's ``choose_dispatch`` for a batch of
-        ``batch_size`` rows."""
+        ``batch_size`` rows, with its ``cost_model``."""
         ell = self.graph.ell
         return choose_dispatch(self.dispatch, batch_size, ell.widths[-1],
-                               ell.padded_slots)
+                               ell.padded_slots, cost_model=self.cost_model,
+                               bucket_launches=ell.bucket_launches)
+
+    def profile_probe(self, state: EngineState) -> dict:
+        """Launch shape of ``state``'s first phase, for trace records.
+
+        Runs the strategy's selection (never the update body) and
+        reports what the step will launch: batch mode the window's rows
+        and snapped scope width, bucket mode the per-bucket launch
+        sequence.  ``prepare`` and ``select`` are pure functions of the
+        state (the claim pass, top-k and FIFO stamps included), so
+        probing changes nothing the step then does; it costs one extra
+        selection (and, for a multi-width window, one ``.item()``).
+        """
+        ctx = self.prepare(state)
+        ids, valid = self.select(0, ctx)
+        batch = int(ids.shape[0])
+        mode = self.resolve_dispatch(batch)
+        rec = {"mode": mode, "phases": int(self.n_phases)}
+        ell = self.graph.ell
+        if mode == "batch":
+            b = (ell.window_bucket(ids, valid & state.active[ids.long()])
+                 if len(ell.scope_widths) > 1 else 0)
+            rec["rows"] = batch
+            rec["width"] = int(ell.scope_widths[b])
+        else:
+            rec["launches"] = list(ell.bucket_launches)
+        return rec
 
     def init_state(self, active=None, priority=None) -> EngineState:
         return init_engine_state(

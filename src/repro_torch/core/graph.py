@@ -19,8 +19,10 @@ Conventions (per bucket block, and in any padded view of it):
 Vertex and edge data are dicts of tensors with leading dim ``Nv`` resp.
 ``n_edges + 1`` (one pad row).  Hub splitting (``hub_split=`` /
 ``w_cap=``) chunks rows wider than ``w_cap`` into virtual rows, as the
-reference does.  Mutation slack and measured width plans are not ported
-yet (ROADMAP A11, A8): asking for them raises ``NotImplementedError``.
+reference does; ``width_policy="measured"`` picks the ladder (split or
+not) a fitted cost model prices cheapest (``choose_width_plan``).
+Mutation slack is not ported yet (ROADMAP A11): asking for it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -488,6 +490,56 @@ def default_w_cap(degrees) -> int:
     return w
 
 
+def candidate_width_plans(slot_cnt, max_deg: int) -> list[dict]:
+    """Width-set candidates ``width_policy="measured"`` scores.
+
+    One unsplit pow2-ladder plan plus one hub-split plan per legal
+    ``w_cap`` in 4..64, each carrying the ``(width, rows)`` launch
+    sequence a full bucket sweep would run under that ladder — computed
+    from per-row real slot counts by the chunking rule
+    ``split_hub_rows`` applies (full ``w_cap``-wide chunks land in the
+    top bucket, the remainder chunk in its covering bucket, zero-slot
+    rows in bucket 0).  Scoring only: no plan is built.
+    """
+    cnt = np.maximum(np.asarray(slot_cnt, np.int64), 0)
+    md = max(int(max_deg), 1)
+
+    def launches(widths, counts):
+        return tuple((int(w), int(c)) for w, c in zip(widths, counts) if c)
+
+    widths = default_bucket_widths(md)
+    counts = np.bincount(bucket_index(widths, cnt), minlength=len(widths))
+    plans = [{"hub_split": False, "w_cap": None, "widths": widths,
+              "launches": launches(widths, counts)}]
+    cap = 4
+    while cap < md and cap <= 64:
+        wc = default_bucket_widths(cap)
+        full, rem = cnt // cap, cnt % cap
+        has_rem = (rem > 0) | (cnt == 0)
+        counts = np.bincount(bucket_index(wc, rem[has_rem]),
+                             minlength=len(wc))
+        counts[-1] += int(full.sum())
+        plans.append({"hub_split": True, "w_cap": cap, "widths": wc,
+                      "launches": launches(wc, counts)})
+        cap *= 2
+    return plans
+
+
+def choose_width_plan(slot_cnt, max_deg: int, cost_model) -> dict | None:
+    """Cheapest candidate plan under a fitted cost model's predicted
+    sweep time; ties keep the earlier candidate (the unsplit ladder
+    comes first).  ``None`` when no candidate is predictable — callers
+    fall back to the pow2 default."""
+    best = None
+    for plan in candidate_width_plans(slot_cnt, max_deg):
+        t = cost_model.predict_launches(plan["launches"])
+        if t is None:
+            continue
+        if best is None or t < best[0]:
+            best = (t, plan)
+    return None if best is None else best[1]
+
+
 def split_hub_rows(nbrs: np.ndarray, nbr_mask: np.ndarray,
                    edge_ids: np.ndarray, is_src: np.ndarray,
                    pad_edge: int, w_cap: int):
@@ -618,6 +670,7 @@ class DataGraph:
         hub_split: bool = False,
         w_cap: int | None = None,
         width_policy: str | None = None,
+        cost_model=None,
         slack: int = 0,
         device=None,
     ) -> "DataGraph":
@@ -636,12 +689,25 @@ class DataGraph:
         ``w_cap`` implies ``hub_split``; a graph whose max degree fits
         ``w_cap`` stays unsplit.  The illegal values and combinations
         raise the reference's ``ValueError``s.
+
+        ``width_policy="measured"`` scores every candidate ladder (the
+        unsplit pow2 ladder and each hub-split ``w_cap``,
+        ``candidate_width_plans``) by a fitted cost model's predicted
+        sweep time and builds the cheapest.  ``cost_model`` is anything
+        ``repro_torch.profile.resolve_cost_model`` takes; unset, the
+        calibration persisted for the type of ``device`` is loaded
+        (``COSTMODEL_cuda.json`` for a card graph, never a CPU one), and
+        with none the policy builds the pow2 default.
         """
         device = resolve_device(device)
         if width_policy not in (None, "pow2", "measured"):
             raise ValueError(
                 f"unknown width_policy {width_policy!r}: expected one "
                 f"of (None, 'pow2', 'measured')")
+        if cost_model is not None and width_policy != "measured":
+            raise ValueError(
+                "cost_model= only applies to width_policy='measured' "
+                "(other policies never consult a model)")
         if width_policy == "measured" and (
                 hub_split or w_cap is not None or bucket_widths is not None):
             raise ValueError(
@@ -673,10 +739,6 @@ class DataGraph:
                 "those pick bucket ladders with no insert headroom; legal "
                 "combinations: slack alone, or the frozen-storage options "
                 "alone")
-        if width_policy == "measured":
-            raise NotImplementedError(
-                "width_policy='measured' (width plans scored by a fitted "
-                "cost model) is not ported to repro_torch yet: ROADMAP A8")
         if slack:
             raise NotImplementedError(
                 "slack= (mutable storage) is not ported to repro_torch "
@@ -696,6 +758,16 @@ class DataGraph:
 
         nbrs, mask, eids, is_src = _build_ell_vectorized(
             n_vertices, edges, md)
+        if width_policy == "measured":
+            from repro_torch.profile.model import (load_cost_model,
+                                                   resolve_cost_model)
+            model = (resolve_cost_model(cost_model, device.type)
+                     if cost_model is not None
+                     else load_cost_model(device.type))
+            plan = (choose_width_plan(mask.sum(axis=1), md, model)
+                    if model is not None else None)
+            if plan is not None and plan["hub_split"]:
+                hub_split, w_cap = True, plan["w_cap"]
         if hub_split and w_cap is None:
             w_cap = default_w_cap(np.maximum(deg, 1))
         if hub_split and md > w_cap:

@@ -7,7 +7,10 @@ batched with ``torch.func.vmap``.  The reduction is the reference's
 contributions with the second half elementwise, carrying an odd tail.
 Its order of operations depends only on the row count, so a sum comes
 out bitwise the same on the CPU and on the GPU (``torch.sum`` makes no
-such promise).
+such promise).  ``valid`` masks rows out (their contributions become
+``acc0``) before the tree, and ``sequential=True`` folds the rows one at
+a time in order instead, the reference's ``lax.scan``: a Python loop
+over rows, meant for tests and small graphs.
 """
 from __future__ import annotations
 
@@ -46,13 +49,35 @@ class SyncOp:
     finalize: Callable[[PyTree], PyTree]          # acc -> result
     acc0: PyTree
     tau: int = 1            # run every `tau` supersteps
+    sequential: bool = False
 
-    def local_reduce(self, vertex_data: dict) -> PyTree:
-        """Fold every vertex against ``acc0``, then Merge the
-        contributions down the pairwise halving tree."""
+    def local_reduce(self, vertex_data: dict,
+                     valid: torch.Tensor | None = None) -> PyTree:
+        """Fold+Merge over the local vertex set -> partial accumulator.
+
+        Parallel: fold every vertex against ``acc0``, replace the rows
+        ``valid`` masks out by ``acc0``, then Merge the contributions
+        down the pairwise halving tree.  ``sequential``: fold the rows
+        one at a time in order, a masked row leaving the accumulator as
+        it was."""
         device = _leaves(vertex_data)[0].device
-        acc0 = tree_map(lambda a: a.to(device), self.acc0)
+        acc0 = tree_map(lambda a: torch.as_tensor(a).to(device), self.acc0)
+        n = _leaves(vertex_data)[0].shape[0]
+        if self.sequential:
+            ok = None if valid is None else valid.cpu().tolist()
+            acc = acc0
+            for i in range(n):
+                if ok is None or ok[i]:
+                    acc = self.fold(acc, tree_map(lambda x: x[i],
+                                                  vertex_data))
+            return acc
         c = vmap(lambda row: self.fold(acc0, row))(vertex_data)
+        if valid is not None:
+            valid = valid.to(device)
+            c = tree_map(
+                lambda x, z: torch.where(
+                    valid.reshape((-1,) + (1,) * (x.dim() - 1)), x,
+                    z.to(x.dtype)), c, acc0)
         merge = vmap(self.merge)
         m = _leaves(c)[0].shape[0]
         while m > 1:
@@ -66,8 +91,9 @@ class SyncOp:
             m = half + m % 2
         return tree_map(lambda x: x[0], c)
 
-    def run(self, vertex_data: dict) -> PyTree:
-        return self.finalize(self.local_reduce(vertex_data))
+    def run(self, vertex_data: dict,
+            valid: torch.Tensor | None = None) -> PyTree:
+        return self.finalize(self.local_reduce(vertex_data, valid))
 
 
 def sum_sync(key: str, value_fn: Callable[[PyTree], torch.Tensor],

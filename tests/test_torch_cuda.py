@@ -901,3 +901,81 @@ def test_gibbs_keys_and_uniforms_on_card_equal_cpu(cuda):
     assert torch.equal(gibbs.uniform(gb).cpu(), gibbs.uniform(b))
     assert torch.equal(gibbs.prng_key(torch.arange(1000, device=cuda)).cpu(),
                        gibbs.prng_key(torch.arange(1000)))
+
+
+@pytest.mark.cuda
+def test_calibrate_smoke_on_card(cuda, tmp_path, monkeypatch):
+    """``python -m repro_torch.profile.calibrate --smoke`` on the card:
+    every record timed, one fit point a (width, B), its files written
+    under ``$REPRO_TORCH_RESULTS_DIR`` and refitting to the same model;
+    it records the CPU's (kind, mode, width, rows) sequence."""
+    from repro_torch.profile import (CostModel, fit_cost_model,
+                                     load_cost_model, load_trace)
+    from repro_torch.profile import calibrate
+    monkeypatch.setenv("REPRO_TORCH_RESULTS_DIR", str(tmp_path))
+    assert calibrate.main(["--smoke"]) == 0
+    trace = load_trace(tmp_path / "TRACE_cuda.json")
+    model = CostModel.load(tmp_path / "COSTMODEL_cuda.json")
+    assert trace.device == model.device == "cuda"
+    assert fit_cost_model(trace.records, device="cuda") == model
+    assert load_cost_model() == model
+    assert all(r["wall_us"] > 0 for r in trace.records)
+    cpu, _ = calibrate.calibrate(device="cpu", emit=lambda *_: None,
+                                 **dict(calibrate.SMOKE_SIZES, iters=1))
+    key = lambda r: (r["kind"], r.get("mode"), r.get("width"), r.get("rows"))
+    assert [key(r) for r in trace.records] == [key(r) for r in cpu.records]
+
+
+def _window_runs(cuda):
+    edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
+    g, upd, syncs = pagerank.build(edges, 2000, eps=1e-4, device=cuda)
+    return g, upd, syncs, (("priority", {"k_select": 64}),
+                           ("locking", {"max_pending": 64}),
+                           ("chromatic", {}))
+
+
+@pytest.mark.cuda
+def test_profile_on_card_is_bitwise_a_plain_run(cuda):
+    g, upd, syncs, cases = _window_runs(cuda)
+    for sched, opts in cases:
+        plain = api.run(g, upd, syncs=syncs, scheduler=sched,
+                        num_supersteps=10, device=cuda, **opts)
+        prof = api.run(g, upd, syncs=syncs, scheduler=sched, profile=True,
+                       num_supersteps=10, device=cuda, **opts)
+        assert torch.equal(prof.vertex_data["rank"],
+                           plain.vertex_data["rank"]), sched
+        assert prof.n_updates == plain.n_updates
+        steps = [r for r in prof.profile.records if r["kind"] == "step"]
+        assert len(steps) == 10 and steps[0]["cold"]
+        assert prof.profile.device == cuda.type
+
+
+class _Force:
+    """A cost model that prices one arm cheaper at every shape."""
+
+    def __init__(self, pick):
+        self._batch_t = 1.0 if pick == "batch" else 2.0
+
+    def predict(self, width, rows):
+        return self._batch_t
+
+    def predict_launches(self, launches):
+        return 1.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pick", ["batch", "bucket"])
+def test_auto_under_a_model_equals_the_forced_arm_on_card(cuda, pick):
+    g, upd, syncs, cases = _window_runs(cuda)
+    for sched, opts in cases[:2]:      # the window engines: "auto" there
+        forced = api.run(g, upd, syncs=syncs, scheduler=sched,
+                         dispatch=pick, num_supersteps=10, device=cuda,
+                         **opts)
+        auto = api.run(g, upd, syncs=syncs, scheduler=sched,
+                       dispatch="auto", cost_model=_Force(pick),
+                       num_supersteps=10, device=cuda, **opts)
+        assert auto.engine.resolve_dispatch(64) == pick, sched
+        assert torch.equal(auto.vertex_data["rank"],
+                           forced.vertex_data["rank"]), sched
+        assert (auto.superstep, auto.n_updates) == (forced.superstep,
+                                                    forced.n_updates)

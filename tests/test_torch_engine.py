@@ -28,6 +28,7 @@ from repro_torch.apps import pagerank
 from repro_torch.core import exec as port_exec
 from repro_torch.core import sync as port_sync
 from repro_torch.core import update as port_update
+from repro_torch.core.engine_sequential import run_sequential
 from torch_parity import ENGINE_GRAPHS, reference_arrays
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -283,13 +284,28 @@ def test_route_and_dense_fold_match_reference():
 
 
 def test_unported_options_raise(monkeypatch):
+    """The sequential oracle and ``trace=`` are ported (ROADMAP A7):
+    they run.  The distributed engines, fault tolerance and online
+    serving still raise, naming A9, A10 and A11; an inapplicable option
+    raises the reference's message; no GPU and no device raises."""
     n, edges_fn, eps = ENGINE_GRAPHS["quickstart"]
     g, upd, syncs = pagerank.build(edges_fn(), n, eps=eps, device="cpu")
-    with pytest.raises(ValueError, match="not registered"):
-        api.run(g, upd, scheduler="sequential", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        api.run(g, upd, trace=True, device="cpu")
-    with pytest.raises(ValueError, match="not options of scheduler"):
+    res = api.run(g, upd, syncs=syncs, scheduler="sequential",
+                  max_supersteps=2, device="cpu")
+    vd, _, _, n_upd = run_sequential(g, upd, syncs=syncs, max_supersteps=2)
+    assert res.superstep is None and res.n_updates == n_upd
+    assert torch.equal(res.vertex_data["rank"], vd["rank"])
+    traced = api.run(g, upd, syncs=syncs, trace=True, num_supersteps=3,
+                     device="cpu")
+    assert [r["superstep"] for r in traced.trace] == [1, 2, 3]
+    for kwargs, item in ((dict(n_shards=2), "A9"),
+                         (dict(partition=np.zeros(n, np.int64)), "A9"),
+                         (dict(exchange_edges=True), "A9"),
+                         (dict(checkpoint_every=2), "A10"),
+                         (dict(slack=2), "A11")):
+        with pytest.raises(ValueError, match=item):
+            api.run(g, upd, device="cpu", **kwargs)
+    with pytest.raises(ValueError, match="does not accept"):
         api.run(g, upd, k_select=8, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

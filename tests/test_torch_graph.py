@@ -185,12 +185,13 @@ def test_generators_match_reference():
     ({"hub_split": True, "bucket_widths": (2, 4)}, ValueError,
      "bucket_widths"),
     ({"w_cap": 6}, ValueError, "power of two"),
-    ({"width_policy": "measured"}, NotImplementedError, "A8"),
+    ({"width_policy": "measured", "w_cap": 8}, ValueError,
+     "chooses the bucket ladder"),
     ({"slack": 2}, NotImplementedError, "A11")])
 def test_unported_storage_options_raise(kwargs, error, match):
-    """Hub splitting is ported: its illegal values and combinations raise
-    the reference's ValueErrors.  Measured width plans (A8) and slack
-    (A11) are not ported and say which ROADMAP item they wait for."""
+    """Hub splitting and measured width plans are ported: their illegal
+    values and combinations raise the reference's ValueErrors.  Slack
+    (A11) is not ported and says which ROADMAP item it waits for."""
     edges = random_graph(20, 40)
     with pytest.raises(error, match=match):
         graph.DataGraph.from_edges(20, edges, {"x": np.zeros(20)},
@@ -228,7 +229,8 @@ def test_package_imports_neither_jax_nor_repro():
     paths = [*PKG.rglob("*.py"), PKG.parents[1] / "chip_smoke.py"]
     subpackages = {p.relative_to(PKG).parts[0] for p in paths
                    if p.parent != PKG and PKG in p.parents}
-    assert {"configs", "models", "serve", "launch", "kernels"} <= subpackages
+    assert {"configs", "models", "serve", "launch", "kernels",
+            "profile"} <= subpackages
     for path in paths:
         for line in path.read_text().splitlines():
             line = line.strip()

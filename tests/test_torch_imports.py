@@ -43,3 +43,15 @@ def test_the_guard_sees_every_import_form():
            "import repro_torch\n")
     names = [n for _, n in sorted(_imported(ast.parse(src)))]
     assert names == ["jax", "repro", "repro", "jax", "repro", "repro_torch"]
+
+
+def test_every_subpackage_is_scanned():
+    """The guard reads every subpackage of the port, ``profile/``
+    included, and the calibration CLI."""
+    pkg = ROOT / "src" / "repro_torch"
+    scanned = {p.relative_to(pkg).parts[0] for p in FILES
+               if p.is_relative_to(pkg) and len(p.relative_to(pkg).parts) > 1}
+    subpackages = {p.name for p in pkg.iterdir()
+                   if p.is_dir() and (p / "__init__.py").exists()}
+    assert "profile" in subpackages and subpackages <= scanned
+    assert pkg / "profile" / "calibrate.py" in FILES

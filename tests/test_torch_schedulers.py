@@ -27,6 +27,7 @@ from repro.core.engine_sequential import run_sequential as ref_run_sequential
 from repro.core.graph import zipf_edges
 from repro.core.update import Consistency as RefConsistency
 from repro.core.update import UpdateFn as RefUpdateFn
+from repro.profile import fit_cost_model as ref_fit
 from repro_torch import api, interop
 from repro_torch.apps import cc, pagerank
 from repro_torch.core import exec as port_exec
@@ -37,6 +38,7 @@ from repro_torch.core.engine_locking import (LockingEngine, conflict_winners,
 from repro_torch.core.engine_sequential import run_sequential
 from repro_torch.core.graph import DataGraph
 from repro_torch.core.update import Consistency, UpdateFn, UpdateResult
+from repro_torch.profile import fit_cost_model as port_fit
 from conftest import random_graph
 from torch_parity import reference_arrays
 
@@ -370,11 +372,21 @@ def test_choose_dispatch_matches_reference():
     for fn in (port_exec.choose_dispatch, ref_exec.choose_dispatch):
         with pytest.raises(ValueError, match="unknown dispatch"):
             fn("bogus", 8, 2, 100)
-    # the reference also spells "auto" as None; the port has one spelling
-    with pytest.raises(ValueError, match="unknown dispatch"):
-        port_exec.choose_dispatch(None, 8, 2, 100)
-    with pytest.raises(ValueError, match="A8"):
-        port_exec.choose_dispatch("auto", 8, 2, 100, cost_model=object())
+    # the reference also spells "auto" as None, and so does the port
+    for b in (1, 64, 4096):
+        assert port_exec.choose_dispatch(None, b, 48, 4096) \
+            == ref_exec.choose_dispatch(None, b, 48, 4096)
+    port_exec.validate_dispatch(None)
+    # a fitted model moves the choice the same way in both packages
+    records = [{"kind": "launch", "mode": "batch", "width": 48, "rows": b,
+                "wall_us": 10.0 + 0.5 * b * 48} for b in (4, 64)]
+    launches = ((2, 300), (48, 40))
+    for b in (1, 8, 64, 4096):
+        assert port_exec.choose_dispatch(
+            "auto", b, 48, 4096, cost_model=port_fit(records),
+            bucket_launches=launches) == ref_exec.choose_dispatch(
+            "auto", b, 48, 4096, cost_model=ref_fit(records),
+            bucket_launches=launches)
 
 
 def test_locking_windowed_claim_pass_matches_full_width():
@@ -439,17 +451,22 @@ def test_top_k_tie_order_matches_lax_top_k(kind):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_run_accepts_the_scheduler_options(cc_runs):
+def test_run_accepts_the_scheduler_options(cc_runs, tmp_path,
+                                           monkeypatch):
     g, upd = cc_runs["port"], _cc_update("EDGE")
     assert api.list_schedulers() == ["bsp", "chromatic", "locking",
-                                     "priority"]
-    with pytest.raises(ValueError, match="not options of scheduler"):
+                                     "priority", "sequential"]
+    with pytest.raises(ValueError, match="does not accept"):
         api.run(g, upd, scheduler="chromatic", max_pending=8, device="cpu")
-    with pytest.raises(ValueError, match="not options of scheduler"):
+    with pytest.raises(ValueError, match="does not accept"):
         api.run(g, upd, scheduler="locking", k_select=8, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        api.run(g, upd, until=lambda glob: True, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A8"):
+    # until= is ported: a predicate true at the start executes nothing
+    res = api.run(g, upd, until=lambda glob: True, device="cpu")
+    assert res.superstep == 0 and res.n_updates == 0
+    # cost_model= is ported: "measured" with no calibration of this
+    # device type says how to make one
+    monkeypatch.setenv("REPRO_TORCH_RESULTS_DIR", str(tmp_path))
+    with pytest.raises(ValueError, match="calibrate"):
         api.run(g, upd, scheduler="priority", cost_model="measured",
                 device="cpu")
     with pytest.raises(ValueError, match="unknown dispatch"):
