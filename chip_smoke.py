@@ -177,7 +177,33 @@ Phases (any failure exits non-zero and prints no result):
                  sequential oracle on the 2k Zipf graph GPU == CPU ==
                  ``run_sequential``, CC locking under
                  ``consistency="full"`` and ``"vertex"`` == union-find;
-18. report     — a ``{"kernels": [...]}`` line, then the contract line
+18. distributed — eight shards on the card (``LocalMesh``, M = 8), each
+                 run's launch counts set to 0 just before and read just
+                 after: (a) PageRank on phase 4's graph, partitioned by
+                 ``two_phase_partition(seed=0)``, bitwise phase 4's run
+                 (ranks, updates, supersteps), with the host times of
+                 the partition and ``ShardPlan.build``, the plan's
+                 shapes, the exchange bytes a superstep, ms a
+                 superstep, peak memory, one superstep's layers and
+                 idle share; (c) CC on the same plan under distributed
+                 chromatic and locking (4,096 pending a shard), both
+                 equal to union-find; (b) split PageRank (w_cap 64)
+                 bitwise phase 16's; (d) ALS on phase 7's problem through
+                 ``api.run(n_shards=8)`` (random partition) against phase
+                 7's run, equal counts, factors within 1e-5 (bitwise
+                 reported); (e) ``als_mpi`` for 10 iterations against
+                 phase 16's MapReduce ALS (rtol = atol = 1e-3), its
+                 all-gather bytes and ms an iteration; (f) CoSeg LBP,
+                 frame partition, cut-edge exchange, under chromatic (4
+                 sweeps) and locking (saturating window, 20
+                 supersteps) against the single-shard runs within 1e-4
+                 with equal counts; (g) ``ProcessGroupMesh`` over NCCL
+                 at world size 1 on the 2k Zipf PageRank, bitwise the
+                 ``LocalMesh`` and single-shard runs (and at world size
+                 ``device_count`` where there are more cards); B1, B2 and
+                 B3 at the shard shapes against their plain versions,
+                 timed beside the library call and the bound;
+19. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -746,6 +772,8 @@ def phase_main(torch, ctx):
     if launches <= 0:
         raise AssertionError("the main path never launched ell_spmv")
     check_pagerank(np, res, ctx["edges"], "full size")
+    ctx["pr_single"] = single_run(res, "rank")
+    ctx["pr_graph_host"] = g.to("cpu")   # phase 18 shards it again
 
     top = report_superstep(torch, res.engine, pagerank_layers())
     spmv = [(t, c) for t, name, c in top if "ell_spmv" in name]
@@ -753,6 +781,13 @@ def phase_main(torch, ctx):
         log(f"ell_spmv in the profiled superstep: "
             f"{sum(t for t, _ in spmv) / 1e3:.3f} ms device time, "
             f"{sum(c for _, c in spmv)} launches")
+
+
+def single_run(res, key):
+    """A run's ``key`` data on the host and its counts, kept for phase
+    18's comparison of the distributed engines with it."""
+    return dict(data=res.vertex_data[key].cpu(), n_updates=res.n_updates,
+                superstep=res.superstep)
 
 
 def check_pagerank(np, res, edges, label):
@@ -1073,6 +1108,7 @@ def phase_als_main(torch, ctx):
         f"{ell_spmv.launches}, peak device memory {peak / 2**30:.2f} GiB")
     if launches <= 0:
         raise AssertionError("the ALS path never launched als_normal_eq")
+    ctx["als_single"] = single_run(res, "w")
 
     n_users, d = prob.n_users, prob.d
     w = res.vertex_data["w"].cpu().numpy()
@@ -2771,6 +2807,9 @@ def phase_split_main(torch, ctx):
             raise AssertionError(f"split PageRank {label} did not launch "
                                  "both kernels")
         check_pagerank(np, res, ctx["zipf_edges"], f"split PageRank {label}")
+        ctx.setdefault("split_single", {})[label] = single_run(res, "rank")
+        if label.endswith("(default)"):
+            ctx["split_host"] = g.to("cpu")   # phase 18 shards it again
         report_superstep(torch, res.engine, layers)
 
     g = next(iter(ctx["split"].values()))[0]
@@ -2849,8 +2888,9 @@ def phase_split_main(torch, ctx):
                lambda _: mr.als_mapreduce_iteration(wu, wm, jobs, d,
                                                     ALS_LAM),
                other="map (messages), host")
+    ctx["mr_als"] = w_mr          # phase 18 holds MPI-style ALS to it
     del jobs, chrom, g
-    release(torch, ctx, "als_dev", "als_host")
+    release(torch, ctx, "als_dev")
 
     ner = ctx["ner"]
     chrom = ctx["coem_chromatic"]
@@ -3346,6 +3386,492 @@ def facade_parts(torch, ctx):
                                  "union-find")
 
 
+# ----------------------------------------------------------------------
+# Phase 18: the distributed engines, eight shards on one card
+# ----------------------------------------------------------------------
+
+N_SHARDS = 8
+# distributed locking CC: pending rows a shard (phase 13's window over
+# the shards); a saturating window needs thousands of supersteps on CC
+DIST_CC_WINDOW = WINDOW // N_SHARDS
+DIST_CC_SUPERSTEPS = 12_000    # drained well before (phase 13: 2,911)
+# the saturating window (max_pending = R a shard), held bitwise against
+# the single-shard engine with every vertex pending for this many
+# supersteps: draining it takes thousands
+DIST_SAT_SUPERSTEPS = 16
+DIST_ALS_TOL = 1e-5            # distributed ALS factors vs phase 7's
+MPI_ALS_TOL = 1e-3             # the reference test's rtol = atol
+DIST_LBP_TOL = 1e-4            # the reference test's LBP tolerance
+
+
+def dist_layers():
+    """PageRank's layers plus the distributed engine's exchanges."""
+    import repro_torch.core.distributed as dist
+    return pagerank_layers() + [
+        (dist, "push_rows", "ghost push (all_to_all)"),
+        (dist, "task_backflow", "task backflow (all_to_all)"),
+        (dist, "dist_refresh_syncs", "syncs (all_gather, merge)"),
+        (dist, "active_total", "termination (psum)")]
+
+
+def plan_report(np, plan, edges, label, t_part, t_plan):
+    """Log a plan's shapes and the bytes a chromatic superstep moves
+    (4-byte vertex rows, the backflow's 8-byte rows): real entries, and
+    the uniform buffers the exchanges carry."""
+    from repro_torch.core.partition import cut_edges
+    ghosts = ((plan.local_to_global >= 0) & ~plan.owned_mask).sum(axis=1)
+    real_v, real_t = int(plan.send_mask.sum()), int(plan.tsend_mask.sum())
+    m, c = plan.M, plan.n_colors
+    buf_v, buf_t = c * m * m * plan.Hv * 4, c * m * m * plan.Hg * 8
+    log(f"{label}: partition {t_part:.1f} s and ShardPlan.build {t_plan:.1f}"
+        f" s on the host; R {plan.R} rows a shard (owned at most "
+        f"{int(plan.owned_mask.sum(axis=1).max())}), ghosts a shard "
+        f"{ghosts.tolist()}, cut edges {cut_edges(plan.assignment, edges)}"
+        f", E_loc {plan.E_loc}, Cmax {plan.Cmax}, Hv {plan.Hv}, Hg "
+        f"{plan.Hg}, sliced slots a shard {plan.sliced_slots} ("
+        f"{plan.bucket_launches}); a superstep's exchanges: ghost push "
+        f"{4 * real_v} bytes real / {buf_v} in buffers, backflow "
+        f"{8 * real_t * c} real / {buf_t} in buffers")
+    return dict(real_bytes=4 * real_v + 8 * real_t * c,
+                buffer_bytes=buf_v + buf_t)
+
+
+def same_as_single(torch, res, single, key, label):
+    """A distributed run against its single-shard run: data bitwise,
+    update and superstep counts equal."""
+    got = res.vertex_data[key].cpu()
+    diff = int((got != single["data"]).sum())
+    log(f"{label}: {res.superstep} supersteps, {res.n_updates} updates; "
+        f"single shard {single['superstep']} / {single['n_updates']}; "
+        f"{diff} of {got.numel()} values differ")
+    if diff or (res.superstep, res.n_updates) != (single["superstep"],
+                                                  single["n_updates"]):
+        raise AssertionError(f"{label}: not bitwise the single-shard run")
+
+
+def phase_distributed(torch, ctx):
+    """M = 8 shards on one card (``LocalMesh``), each run's launch counts
+    set to 0 just before and read just after: (a) PageRank and (b) split
+    PageRank bitwise their single-shard runs, (c) CC under distributed
+    chromatic and locking equal to union-find, (d) ALS against phase 7,
+    (e) MPI-style ALS against MapReduce ALS, (f) CoSeg LBP with cut-edge
+    exchange, (g) the NCCL arm; then B1, B2 and B3 at the shard shapes."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.apps import cc, pagerank
+    from repro_torch.core.distributed import ShardPlan
+    from repro_torch.core.partition import two_phase_partition
+    dev, edges = ctx["dev"], ctx["zipf_edges"]
+    total = ctx["launches"]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b1, b2, b3 = [], [], []
+
+    def counted(fn):
+        out, wall, peak, counts = split_counts(torch, fn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, wall, peak, counts
+
+    def one_superstep(eng, what):
+        report_run(torch, what, dist_layers(), eng._superstep,
+                   eng.init_carry)
+
+    # (a) PageRank on phase 4's graph and colors
+    t0 = time.perf_counter()
+    g = ctx.pop("pr_graph_host").to(dev)
+    upd = pagerank.make_update(EPS)
+    syncs = (pagerank.second_most_popular_sync(),
+             pagerank.total_rank_sync())
+    t1 = time.perf_counter()
+    asg = two_phase_partition(FULL_N, g.edges_np, N_SHARDS, seed=0)
+    t2 = time.perf_counter()
+    plan = ShardPlan.build(g, asg, N_SHARDS)
+    t3 = time.perf_counter()
+    log(f"(a) phase 4's PageRank graph back on the card in "
+        f"{t1 - t0:.1f} s")
+    moved = plan_report(np, plan, edges, "(a) PageRank plan", t2 - t1,
+                        t3 - t2)
+    res, wall, peak, counts = counted(lambda: api.run(
+        g, upd, syncs=syncs, n_shards=N_SHARDS, partition=plan, device=dev))
+    log(f"(a) distributed PageRank, M={N_SHARDS}: {wall:.3f} s "
+        f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep; phase 4 "
+        f"on one shard: see above), launches {counts}, peak device memory "
+        f"{peak:.2f} GiB, exchanges {moved['real_bytes']} bytes real / "
+        f"{moved['buffer_bytes']} in buffers a superstep")
+    if counts["ell_spmv"] <= 0:
+        raise AssertionError("distributed PageRank never launched ell_spmv")
+    same_as_single(torch, res, ctx["pr_single"], "rank",
+                   "(a) distributed PageRank")
+    check_pagerank(np, res, edges, "(a) distributed PageRank")
+    eng = res.engine
+    one_superstep(eng, "distributed PageRank superstep (M=8)")
+    shard = plan.local_struct(0, dev)
+    w0 = plan.shard_edge_data({"w": g.edge_data["w"][:-1]})["w"][0]
+    x0 = torch.rand((plan.R, 1), generator=gen, device=dev) + 0.5
+    b1.append(sweep_case(torch, "B1 shard 0's bucket sweep (M=8)",
+                         shard.ell, w0, x0, gen, flush))
+    for i in range(1, N_SHARDS):
+        check_sweep_bitwise(torch, plan.local_ell(i, dev), gen,
+                            f"B1 shard {i}'s bucket sweep")
+    del res, eng, shard, w0, x0
+
+    # (c) CC on the same storage and plan
+    truth = ctx["cc_truth"]
+    cc_g = dataclasses.replace(g, vertex_data={
+        "label": torch.arange(FULL_N, dtype=torch.int32, device=dev)},
+        edge_data={})
+    for label, opts in (("chromatic", {}),
+                        ("locking", {"scheduler": "locking",
+                                     "max_pending": DIST_CC_WINDOW,
+                                     "max_supersteps": DIST_CC_SUPERSTEPS})):
+        res, wall, peak, counts = counted(lambda: api.run(
+            cc_g, cc.make_update(), n_shards=N_SHARDS, partition=plan,
+            device=dev, **opts))
+        labels = res.vertex_data["label"].cpu().numpy()
+        extra = (f", ghost rows sent {res.stats['ghost_rows_sent']} of "
+                 f"{res.stats['ghost_rows_full']}"
+                 if "ghost_rows_sent" in res.stats else "")
+        log(f"(c) distributed CC {label} (M={N_SHARDS}"
+            f"{', ' + str(DIST_CC_WINDOW) + ' pending a shard' if opts else ''}"
+            f"): {res.superstep} supersteps, {res.n_updates} updates, "
+            f"{wall:.3f} s ({1e3 * wall / max(res.superstep, 1):.2f} "
+            f"ms/superstep), peak {peak:.2f} GiB{extra}")
+        if res.active_any or not np.array_equal(labels, truth):
+            raise AssertionError(f"(c) CC {label}: not drained or "
+                                 f"{int((labels != truth).sum())} labels "
+                                 "differ from union-find")
+        if label == "locking":
+            one_superstep(res.engine, "distributed CC locking superstep")
+        del res
+    log("(c) distributed CC: chromatic and locking equal union-find")
+    dist_cc_saturating(torch, api, cc, cc_g, plan, counted)
+    del cc_g, g, upd, syncs, plan
+    release(torch, ctx)
+
+    # (b) split PageRank at the default w_cap (64), phase 4's assignment
+    t0 = time.perf_counter()
+    g = ctx.pop("split_host").to(dev)
+    upd = pagerank.make_update(EPS)
+    syncs = (pagerank.second_most_popular_sync(),
+             pagerank.total_rank_sync())
+    t1 = time.perf_counter()
+    plan = ShardPlan.build(g, asg, N_SHARDS)
+    t2 = time.perf_counter()
+    moved = plan_report(np, plan, edges, f"(b) split plan, w_cap "
+                        f"{plan.ell_w_cap} (phase 16's graph back on the "
+                        f"card in {t1 - t0:.1f} s)", 0.0, t2 - t1)
+    res, wall, peak, counts = counted(lambda: api.run(
+        g, upd, syncs=syncs, n_shards=N_SHARDS, partition=plan, device=dev))
+    log(f"(b) distributed split PageRank: {wall:.3f} s "
+        f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), launches "
+        f"{counts}, peak {peak:.2f} GiB")
+    if counts["ell_spmv"] <= 0 or counts["segment_combine"] <= 0:
+        raise AssertionError("distributed split PageRank did not launch "
+                             "both kernels")
+    single = ctx["split_single"][f"w_cap={plan.ell_w_cap} (default)"]
+    same_as_single(torch, res, single, "rank",
+                   "(b) distributed split PageRank")
+    check_pagerank(np, res, edges, "(b) distributed split PageRank")
+    ell0 = plan.local_ell(0, dev)
+    y = torch.rand((ell0.n_virtual, 1), generator=gen, device=dev)
+    b2.append(segment_case(torch, "B2 split shard 0's owner combine (M=8)",
+                           y, ell0.vrow_offset, flush))
+    del res, g, upd, syncs, plan, ell0, y
+    release(torch, ctx)
+
+    dist_als(torch, ctx, np, api, counted, flush, b3)
+    dist_lbp(torch, ctx, np, api, counted)
+    nccl_arm(torch, ctx, np, api)
+    ctx["dist_cases"] = {"ell_spmv": b1, "segment_combine": b2,
+                         "als_normal_eq": b3}
+
+
+def dist_cc_saturating(torch, api, cc, cc_g, plan, counted):
+    """(c) CC under distributed locking with the saturating window
+    (``max_pending = plan.R``), stopped after ``DIST_SAT_SUPERSTEPS``:
+    labels, updates and supersteps bitwise the single-shard locking
+    engine's with every vertex pending, stopped at the same superstep."""
+    runs = {}
+    for label, opts in (
+            ("single shard", {"max_pending": cc_g.n_vertices}),
+            (f"M={N_SHARDS}", {"max_pending": plan.R, "n_shards": N_SHARDS,
+                               "partition": plan})):
+        res, wall, peak, counts = counted(lambda: api.run(
+            cc_g, cc.make_update(), scheduler="locking",
+            num_supersteps=DIST_SAT_SUPERSTEPS, device=cc_g.device, **opts))
+        runs[label] = res
+        log(f"(c) CC locking, saturating window, {label} "
+            f"({opts['max_pending']} pending"
+            f"{' a shard' if 'partition' in opts else ''}): {res.superstep} supersteps, {res.n_updates} updates, "
+            f"{wall:.3f} s ({1e3 * wall / max(res.superstep, 1):.2f} "
+            f"ms/superstep), launches {counts}, peak {peak:.2f} GiB")
+    single = runs["single shard"]
+    same_as_single(torch, runs[f"M={N_SHARDS}"], dict(
+        data=single.vertex_data["label"].cpu(), superstep=single.superstep,
+        n_updates=single.n_updates), "label",
+        "(c) distributed CC locking, saturating window")
+
+
+def check_sweep_bitwise(torch, ell, gen, label):
+    """One shard's bucket sweep (one launch) against its plain version,
+    bitwise, untimed."""
+    from repro_torch.kernels.ell_spmv import ell_spmv_bucketed, ell_spmv_plain
+    dev = ell.device
+    x = torch.rand((ell.n_rows, 1), generator=gen, device=dev)
+    w = [torch.where(m, torch.rand(m.shape, generator=gen, device=dev), 0.0)
+         for m in ell.nbr_mask]
+    masks = [torch.rand(nb.shape[0], generator=gen, device=dev) < 0.8
+             for nb in ell.nbrs]
+    y = ell_spmv_bucketed(ell.nbrs, w, x, masks)
+    yp = torch.cat([ell_spmv_plain(nb, wb, x, m)
+                    for nb, wb, m in zip(ell.nbrs, w, masks)])
+    if bits_differ(torch, y, yp):
+        raise AssertionError(f"{label}: differs from its plain version")
+
+
+def dist_als(torch, ctx, np, api, counted, flush, b3):
+    """(d) ALS at Netflix width on 8 shards through ``api.run`` against
+    phase 7's run, and (e) MPI-style ALS against MapReduce ALS."""
+    import dataclasses
+
+    from repro_torch.apps import als
+    from repro_torch.baselines.mpi_als import MPIBlocks, als_mpi
+    from repro_torch.core.distributed import ShardPlan
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.core.partition import random_partition
+    from repro_torch.core.update import gather_scopes
+    dev = ctx["dev"]
+    prob = dataclasses.replace(ctx["als_host"],
+                               graph=ctx["als_host"].graph.to(dev))
+    g, upd, syncs = als.build(prob, lam=ALS_LAM, eps=0.0)
+    t0 = time.perf_counter()
+    # the paper's partition of the dense bipartite Netflix graph: random
+    asg = random_partition(g.n_vertices, N_SHARDS, seed=0)
+    plan = ShardPlan.build(g, asg, N_SHARDS)
+    t1 = time.perf_counter()
+    plan_report(np, plan, g.edges_np, "(d) ALS plan (random partition)",
+                0.0, t1 - t0)
+    res, wall, peak, counts = counted(lambda: api.run(
+        g, upd, syncs=syncs, n_shards=N_SHARDS, partition=plan, device=dev,
+        num_supersteps=ALS_SUPERSTEPS))
+    single = ctx["als_single"]
+    w = res.vertex_data["w"].cpu()
+    diff = float((w - single["data"]).abs().max())
+    bitwise = bool(torch.equal(w, single["data"]))
+    log(f"(d) distributed ALS, M={N_SHARDS}: {res.superstep} supersteps, "
+        f"{res.n_updates} updates (phase 7: {single['superstep']} / "
+        f"{single['n_updates']}), {wall:.3f} s "
+        f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), "
+        f"launches {counts}, peak {peak:.2f} GiB; factors bitwise phase 7's:"
+        f" {bitwise} (max |diff| {diff:.3e}, limit {DIST_ALS_TOL:.0e}); "
+        f"sync RMSE {float(res.globals['rmse'])}")
+    if counts["als_normal_eq"] <= 0:
+        raise AssertionError("distributed ALS never launched als_normal_eq")
+    if (res.superstep, res.n_updates) != (single["superstep"],
+                                          single["n_updates"]) \
+            or diff > DIST_ALS_TOL:
+        raise AssertionError("(d) distributed ALS off phase 7's run")
+    # B3 at a shard's fold shapes: each color's [Cmax, D] scope
+    eng = res.engine
+    s0 = eng._sa[0]
+    carry = eng.init_carry()
+    for c in range(plan.n_colors):
+        scope = gather_scopes(s0.struct, carry["vertex_data"][0],
+                              carry["edge_data"][0], s0.color_ids[c], {})
+        X = scope.nbr_data["w"]
+        b3.append(als_case(torch, f"B3 ALS shard 0 fold color {c} (M=8)",
+                           None, scope.nbr_mask,
+                           scope.edge_data["rating"],
+                           X.reshape(-1, X.shape[-1]), flush))
+        del scope, X
+    del res, eng, carry, s0, plan
+    release(torch, ctx)
+
+    # (e) MPI-style ALS, 10 iterations, against phase 16's MapReduce ALS
+    (wu, wv, info), wall, peak, counts = counted(lambda: als_mpi(
+        prob, MR_ITERS, n_devices=N_SHARDS, lam=ALS_LAM))
+    # its iterations alone, on blocks set up outside the timing
+    blocks, setup_s, _, _ = split_counts(torch, lambda: MPIBlocks(
+        prob, LocalMesh(N_SHARDS, [dev])))
+
+    def iterate():
+        for _ in range(MR_ITERS):
+            blocks.iterate(ALS_LAM)
+    _, it_wall, _, _ = split_counts(torch, iterate)
+    del blocks
+    w_mpi = torch.cat([wu, wv]).cpu().numpy()
+    w_mr = ctx["mr_als"]
+    err = np.abs(w_mpi - w_mr) - MPI_ALS_TOL * np.abs(w_mr)
+    r64 = prob.ratings.astype(np.float64)
+    rm = rmse64(prob.pairs, r64, w_mpi.astype(np.float64), prob.n_users)
+    it_ms = 1e3 * it_wall / MR_ITERS
+    log(f"(e) MPI-style ALS, M={N_SHARDS}: {MR_ITERS} iterations, "
+        f"{wall:.3f} s with its set-up ({setup_s:.3f} s), {it_ms:.2f} ms an "
+        f"iteration, {info['bytes_per_iter']} bytes all-gathered an "
+        f"iteration, launches {counts}, peak {peak:.2f} GiB; against "
+        f"MapReduce ALS max |diff| {float(np.abs(w_mpi - w_mr).max()):.3e} "
+        f"(rtol = atol = {MPI_ALS_TOL:.0e}), RMSE {rm:.7f}")
+    if counts["als_normal_eq"] <= 0:
+        raise AssertionError("MPI-style ALS never launched als_normal_eq")
+    if not np.isfinite(w_mpi).all() or err.max() > MPI_ALS_TOL:
+        raise AssertionError("(e) MPI-style ALS off MapReduce ALS")
+    del wu, wv, g, prob
+    release(torch, ctx, "als_host", "mr_als")
+
+
+def dist_lbp(torch, ctx, np, api, counted):
+    """(f) CoSeg LBP on phase 13's grid, frame partition, cut-edge
+    exchange: distributed chromatic (4 sweeps) and locking (saturating
+    window, 20 supersteps) against the single-shard runs."""
+    from repro_torch.apps import lbp
+    from repro_torch.core.distributed import ShardPlan
+    dev = ctx["dev"]
+    prob = ctx["coseg"]
+    g = prob.graph
+    upd = lbp.make_update(COSEG_LABELS, beta=COSEG_BETA, gamma=COSEG_GAMMA,
+                          eps=COSEG_EPS, use_gmm_sync=False)
+    t0 = time.perf_counter()
+    plan = ShardPlan.build(g, lbp.frame_partition(prob, N_SHARDS), N_SHARDS)
+    log(f"(f) CoSeg frame plan: {time.perf_counter() - t0:.1f} s, R "
+        f"{plan.R}, He {plan.He}, Hc {plan.Hc}, E_loc {plan.E_loc}")
+    for label, single_opts, dist_opts, steps in (
+            ("chromatic", {}, {}, COSEG_SWEEPS),
+            ("locking", {"scheduler": "locking",
+                         "max_pending": g.n_vertices},
+             {"scheduler": "locking", "max_pending": plan.R},
+             COSEG_LOCKING_STEPS)):
+        single = api.run(g, upd, device=dev, num_supersteps=steps,
+                         **single_opts)
+        res, wall, peak, counts = counted(lambda: api.run(
+            g, upd, n_shards=N_SHARDS, partition=plan, exchange_edges=True,
+            device=dev, num_supersteps=steps, **dist_opts))
+        diff = float((res.vertex_data["belief"]
+                      - single.vertex_data["belief"]).abs().max())
+        extra = (f", ghost rows sent {res.stats['ghost_rows_sent']} of "
+                 f"{res.stats['ghost_rows_full']}"
+                 if "ghost_rows_sent" in res.stats else "")
+        log(f"(f) distributed CoSeg LBP {label}: {res.n_updates} updates in "
+            f"{res.superstep} supersteps (one shard: {single.n_updates}), "
+            f"{wall:.3f} s ({1e3 * wall / max(res.superstep, 1):.2f} "
+            f"ms/superstep), peak {peak:.2f} GiB, beliefs max |diff| "
+            f"{diff:.3e} (limit {DIST_LBP_TOL:.0e}){extra}")
+        if res.n_updates != single.n_updates or not diff <= DIST_LBP_TOL:
+            raise AssertionError(f"(f) distributed LBP {label} off the "
+                                 "single-shard run")
+        del res, single
+    del plan
+    release(torch, ctx)
+
+
+def nccl_arm(torch, ctx, np, api):
+    """(g) ``ProcessGroupMesh`` over NCCL at world size 1 (a TCP store on
+    localhost, this process) on the 2k Zipf PageRank, bitwise the
+    ``LocalMesh`` one-shard run and the single-shard engine; with more
+    cards, also at world size ``device_count`` against a ``LocalMesh``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.apps import pagerank
+    from repro_torch.core.graph import zipf_edges
+    from repro_torch.core.mesh import ProcessGroupMesh
+    dev = ctx["dev"]
+    edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
+    g, upd, syncs = pagerank.build(edges, 2000, eps=EPS, device=dev)
+    zeros = np.zeros(2000, np.int64)
+    single = api.run(g, upd, syncs=syncs, device=dev)
+    local = api.run(g, upd, syncs=syncs, n_shards=1, partition=zeros,
+                    device=dev)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("localhost", port, 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = ProcessGroupMesh(device=dev)
+        pg = api.run(g, upd, syncs=syncs, n_shards=1, partition=zeros,
+                     mesh=mesh, device=dev)
+    finally:
+        dist.destroy_process_group()
+    for label, r in (("LocalMesh M=1", local), ("NCCL world 1", pg)):
+        same = (torch.equal(r.vertex_data["rank"], single.vertex_data["rank"])
+                and (r.superstep, r.n_updates) == (single.superstep,
+                                                   single.n_updates))
+        log(f"(g) 2k Zipf PageRank, {label}: {r.superstep} supersteps, "
+            f"{r.n_updates} updates; bitwise the single-shard engine: {same}")
+        if not same:
+            raise AssertionError(f"(g) {label} != the single-shard engine")
+    n = torch.cuda.device_count()
+    if n > 1:
+        nccl_multi(torch, np, n, edges)
+    else:
+        log("(g) one card: the NCCL arm runs at world size 1 only")
+
+
+def _nccl_worker(rank, world, port, edges, out):
+    """One rank of the multi-card NCCL arm: the 2k PageRank over a
+    ``ProcessGroupMesh`` on ``cuda:rank``; rank 0 saves the ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import api
+    from repro_torch.apps import pagerank
+    from repro_torch.core.mesh import ProcessGroupMesh
+    from repro_torch.core.partition import two_phase_partition
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    store = dist.TCPStore("localhost", port, world, rank == 0)
+    dist.init_process_group("nccl", store=store, rank=rank, world_size=world)
+    try:
+        g, upd, syncs = pagerank.build(edges, 2000, eps=EPS, device=dev)
+        res = api.run(g, upd, syncs=syncs, n_shards=world, device=dev,
+                      partition=two_phase_partition(2000, g.edges_np, world,
+                                                    seed=0),
+                      mesh=ProcessGroupMesh(device=dev))
+        if rank == 0:
+            np.savez(out, rank=res.vertex_data["rank"].cpu().numpy(),
+                     counts=[res.superstep, res.n_updates])
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_multi(torch, np, n, edges):
+    """The NCCL arm at world size ``n`` (one process a card) against a
+    ``LocalMesh`` of ``n`` shards on ``cuda:0``, bitwise."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import api
+    from repro_torch.apps import pagerank
+    from repro_torch.core.partition import two_phase_partition
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "nccl.npz")
+        mp.spawn(_nccl_worker, args=(n, port, edges, out), nprocs=n)
+        with np.load(out) as z:
+            ranks, counts = z["rank"], z["counts"].tolist()
+    dev = torch.device("cuda", 0)
+    g, upd, syncs = pagerank.build(edges, 2000, eps=EPS, device=dev)
+    local = api.run(g, upd, syncs=syncs, n_shards=n, device=dev,
+                    partition=two_phase_partition(2000, g.edges_np, n,
+                                                  seed=0))
+    same = (np.array_equal(ranks, local.vertex_data["rank"].cpu().numpy())
+            and counts == [local.superstep, local.n_updates])
+    log(f"(g) NCCL world {n} (one card a rank) against LocalMesh M={n}: "
+        f"bitwise {same}")
+    if not same:
+        raise AssertionError(f"(g) NCCL world {n} != LocalMesh")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -3428,7 +3954,8 @@ def main() -> int:
                      ("phase 15 split and app parity", phase_split_parity),
                      ("phase 16 split and apps main path",
                       phase_split_main),
-                     ("phase 17 facade and cost model", phase_facade)):
+                     ("phase 17 facade and cost model", phase_facade),
+                     ("phase 18 distributed", phase_distributed)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:
@@ -3452,7 +3979,8 @@ def main() -> int:
         "max_abs_err": max([ctx["kernel_max_err"]] + [
             c["max_abs_err"] for key in ("sched_kernel_cases",
                                          "split_b1_cases", "facade_b1_cases")
-            for c in ctx[key]]),
+            for c in ctx[key]] + [c["max_abs_err"] for c in
+                                  ctx["dist_cases"]["ell_spmv"]]),
         **{k: sweep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
     }]
@@ -3462,7 +3990,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/als_normal_eq.cu",
         "replaces": "src/repro/kernels/als_normal_eq.py:26",
         "launches": ctx["launches"]["als_normal_eq"],
-        "max_abs_err": max(c["max_abs_err"] for c in ctx["als_cases"]),
+        "max_abs_err": max(c["max_abs_err"] for c in ctx["als_cases"]
+                           + ctx["dist_cases"]["als_normal_eq"]),
         # the main path's launches of one superstep: one fold per color
         **{k: sum(c[k] for c in folds)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -3487,7 +4016,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/segment_combine.cu",
         "replaces": "src/repro/kernels/ell_spmv.py:185",
         "launches": ctx["launches"]["segment_combine"],
-        "max_abs_err": max(c["max_abs_err"] for c in ctx["split_seg_cases"]),
+        "max_abs_err": max(c["max_abs_err"] for c in ctx["split_seg_cases"]
+                           + ctx["dist_cases"]["segment_combine"]),
         **{k: owner[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
     })

@@ -24,12 +24,17 @@ configuration):
   ``trace=`` records every superstep and ``profile=True`` times every
   superstep into a ``repro_torch.profile.TraceRecorder``.
 
+* ``n_shards > 1`` (or an explicit ``partition=``) builds the
+  strategy's distributed variant over a ``ShardPlan`` and runs its
+  shards through a mesh (``mesh=``: a ``repro_torch.core.mesh``
+  ``LocalMesh``, the default, on the run's device, or a
+  ``ProcessGroupMesh``).
+
 The port adds ``device=`` (default: the GPU, see ``resolve_device``; the
 graph is moved there if it lives elsewhere) and keeps ``use_kernel=``
-as a keyword.  The distributed engines (``n_shards > 1``,
-``partition=``), fault tolerance and online serving are not ported yet:
+as a keyword.  Fault tolerance and online serving are not ported yet:
 their keywords raise ``ValueError`` naming the ROADMAP item they wait
-for (A9, A10, A11).
+for (A10, A11).
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ import torch
 
 from repro_torch.core import registry
 from repro_torch.core.exec import EngineState, validate_dispatch
-from repro_torch.core.registry import (_A9, describe_schedulers,
-                                       get_scheduler, list_schedulers)
+from repro_torch.core.registry import (describe_schedulers,
+                                       get_distributed, get_scheduler,
+                                       list_schedulers)
 from repro_torch.core.sync import SyncOp, tree_map
 from repro_torch.core.update import Consistency, UpdateFn
 from repro_torch.device import resolve_device
@@ -69,8 +75,9 @@ class RunResult:
     asked for; ``profile`` the ``TraceRecorder`` of timed step records
     when ``profile=True`` (save it, or fit a cost model with
     ``repro_torch.profile.fit_cost_model``).  ``stats`` carries
-    strategy-specific extras and ``restarts`` the supervised run's
-    restart log; both wait for ROADMAP A9 / A10, so they stay empty.
+    strategy-specific extras (a distributed run's local shard data, and
+    the locking engine's ghost traffic); ``restarts`` the supervised
+    run's restart log, which waits for ROADMAP A10.
     """
     vertex_data: PyTree
     edge_data: PyTree | None
@@ -141,9 +148,11 @@ class EngineSpec:
                     "engine options: pass them to DataGraph.from_edges "
                     "(or an app builder such as pagerank.build) so the "
                     "graph is stored split before handing it to run()")
+            dist = isinstance(entry, registry.DistributedEntry)
             raise ValueError(
-                f"scheduler {self.scheduler!r} does not accept "
-                f"{sorted(unknown)}; allowed options: "
+                f"scheduler {self.scheduler!r}"
+                f"{' (distributed)' if dist else ''} does not "
+                f"accept {sorted(unknown)}; allowed options: "
                 f"{sorted(entry.allowed)}")
         for key in ("max_pending", "k_select", "max_supersteps"):
             v = kwargs.get(key)
@@ -173,20 +182,73 @@ class EngineSpec:
         return dataclasses.replace(update_fn, consistency=c)
 
     def distributed(self, partition=None) -> bool:
-        """Does this spec ask for a distributed engine?  True for
-        ``n_shards > 1`` and for an explicit ``partition=``."""
+        """Does this spec resolve to a distributed engine?  True for
+        ``n_shards > 1``, and for an explicit ``partition=`` at
+        ``n_shards == 1`` (the degenerate one-shard plan)."""
         return self.n_shards > 1 or partition is not None
 
     def build(self, graph, update_fn: UpdateFn,
               syncs: Sequence[SyncOp] = (), *, partition=None):
-        """Resolve the registry entry and construct the engine."""
+        """Resolve the registry entry and construct the engine.
+
+        Without a ``partition=``, ``n_shards == 1`` builds the
+        single-device strategy; otherwise the strategy's distributed
+        variant is built over a ``ShardPlan``.  ``partition=`` is a
+        ``[Nv]`` shard assignment, a callable ``(graph, n_shards) ->
+        assignment``, a prebuilt ``ShardPlan``, ``"measured"`` (the
+        cost-model-scored ``two_phase_partition``), or None for
+        ``two_phase_partition(graph.n_vertices, graph.edges_np, n_shards,
+        seed=0)`` (``edges_np`` is the graph's stored edge order).
+        """
         update_fn = self._resolve_update(update_fn)
-        if self.distributed(partition):
-            raise ValueError(_A9)
-        entry = get_scheduler(self.scheduler)
-        self._check_colors(entry, graph)
-        return entry.factory(graph, update_fn, syncs=tuple(syncs),
-                             **self._factory_kwargs(entry))
+        if not self.distributed(partition):
+            entry = get_scheduler(self.scheduler)
+            self._check_colors(entry, graph)
+            return entry.factory(graph, update_fn, syncs=tuple(syncs),
+                                 **self._factory_kwargs(entry))
+        from repro_torch.core.distributed import ShardPlan
+        from repro_torch.core.partition import two_phase_partition
+        dentry = get_distributed(self.scheduler)
+        self._check_colors(get_scheduler(self.scheduler), graph)
+        if isinstance(partition, ShardPlan):
+            if partition.M != self.n_shards:
+                raise ValueError(
+                    f"partition= plan has M={partition.M} shards but "
+                    f"n_shards={self.n_shards}")
+            plan = partition
+        else:
+            if isinstance(partition, str):
+                if partition != "measured":
+                    raise ValueError(
+                        f"unknown partition {partition!r}: the only "
+                        "string form is 'measured' (cost-model-scored "
+                        "two_phase_partition, DESIGN.md §11); otherwise "
+                        "pass an assignment, a callable, or a ShardPlan")
+                from repro_torch.profile.model import (load_cost_model,
+                                                       resolve_cost_model)
+                model = self.options.get("cost_model")
+                model = (resolve_cost_model(model, graph.device.type)
+                         if model is not None
+                         else load_cost_model(graph.device.type))
+                if model is None:
+                    raise ValueError(
+                        "partition='measured' needs a cost model: pass "
+                        "cost_model=, or calibrate this device first "
+                        "(python -m repro_torch.profile.calibrate)")
+                assignment = two_phase_partition(
+                    graph.n_vertices, graph.edges_np, self.n_shards,
+                    seed=0, cost_model=model, w_cap=graph.ell.w_cap)
+            elif callable(partition):
+                assignment = partition(graph, self.n_shards)
+            elif partition is None:
+                assignment = two_phase_partition(
+                    graph.n_vertices, graph.edges_np, self.n_shards,
+                    seed=0)
+            else:
+                assignment = np.asarray(partition)
+            plan = ShardPlan.build(graph, assignment, self.n_shards)
+        return dentry.factory(graph, plan, update_fn, syncs=tuple(syncs),
+                              **self._factory_kwargs(dentry))
 
     def _check_colors(self, entry, graph) -> None:
         if entry.needs_colors and graph.colors is None:
@@ -234,7 +296,7 @@ def _resolve_cost_model_option(cost_model, device: torch.device):
 # options of the reference's run that the port does not take yet, and
 # the ROADMAP item each waits for
 _NOT_PORTED = {
-    "exchange_edges": "A9", "checkpoint_every": "A10",
+    "checkpoint_every": "A10",
     "checkpoint_dir": "A10", "resume_from": "A10", "faults": "A10",
     "max_restarts": "A10", "slack": "A11", "edge_capacity": "A11",
     "publish_every": "A11",
@@ -297,12 +359,34 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
         raise ValueError(f"num_supersteps must be a non-negative int, got "
                          f"{num_supersteps!r}")
     device = resolve_device(device)
+    distributed = EngineSpec(scheduler=scheduler,
+                             n_shards=n_shards).distributed(partition)
+    if distributed:
+        if until is not None or trace is not None or profile:
+            raise ValueError(
+                "until=/trace=/profile= step the engine from the host "
+                "and are single-device only; a distributed run steps "
+                "all of its shards inside the engine (n_shards=1 "
+                "supports all three)")
+        if priority is not None:
+            raise ValueError("priority= initialization is single-device "
+                             "only (shards derive priority from active)")
     engine = build_engine(
         graph, update, scheduler=scheduler, consistency=consistency,
         syncs=syncs, n_shards=n_shards, dispatch=dispatch,
         max_pending=max_pending, max_supersteps=max_supersteps,
         partition=partition, cost_model=cost_model, device=device,
         **options)
+    if distributed:
+        out = engine.run(active=active, num_supersteps=num_supersteps)
+        main = ("vertex_data", "globals", "supersteps", "n_updates",
+                "active_any")
+        return RunResult(
+            vertex_data=out["vertex_data"], edge_data=None,
+            globals=out["globals"], superstep=out["supersteps"],
+            n_updates=out["n_updates"], active_any=out["active_any"],
+            engine=engine,
+            stats={k: v for k, v in out.items() if k not in main})
     entry = get_scheduler(scheduler)
 
     if not entry.stepping:

@@ -10,7 +10,8 @@ iteration: recompute the outgoing messages from the cavity belief under
 a Potts potential, reschedule a neighbour whose incoming message moved
 by more than ``eps``, with the residual as its priority.  A sync keeps
 the GMM centroids, which the update reads back for its unary terms.
-The distributed locking engine and its partitions wait for ROADMAP A9.
+``frame_partition`` (the paper's natural cut across frames) and
+``striped_partition`` (its worst case) feed the distributed engines.
 """
 from __future__ import annotations
 
@@ -158,3 +159,37 @@ def residual_locking_engine(problem: CoSegProblem, eps: float = 1e-2,
     return get_scheduler("locking").factory(
         graph, upd, syncs=syncs, max_pending=max_pending,
         max_supersteps=max_supersteps)
+
+
+def distributed_locking_engine(problem: CoSegProblem, n_shards: int,
+                               max_pending: int = 64,
+                               max_supersteps: int = 20000,
+                               eps: float = 1e-2,
+                               worst_case: bool = False):
+    """CoSeg on ``n_shards`` shards under the distributed locking engine:
+    the frame partition (or the paper's striped worst case), cut-edge
+    message replicas exchanged through the versioned edge sync.  The
+    shards share the device the problem's graph lives on."""
+    from repro_torch import api
+    asg_fn = striped_partition if worst_case else frame_partition
+    upd = make_update(problem.n_labels, eps=eps, use_gmm_sync=False)
+    return api.build_engine(
+        problem.graph, upd, scheduler="locking", n_shards=n_shards,
+        partition=asg_fn(problem, n_shards), max_pending=max_pending,
+        max_supersteps=max_supersteps, exchange_edges=True,
+        device=problem.graph.device)
+
+
+def frame_partition(problem: CoSegProblem, n_machines: int) -> np.ndarray:
+    """The paper's natural partitioning: slice across frames (§5.2)."""
+    f, h, w = problem.shape
+    frames = np.arange(f * h * w) // (h * w)
+    return (frames * n_machines) // f
+
+
+def striped_partition(problem: CoSegProblem, n_machines: int) -> np.ndarray:
+    """The paper's worst-case partition: frames striped across machines
+    (Fig. 8b), so every scope acquisition crosses shards."""
+    f, h, w = problem.shape
+    frames = np.arange(f * h * w) // (h * w)
+    return frames % n_machines

@@ -12,8 +12,8 @@ The port of ``repro.core.exec``:
 * ``scope_claims`` / ``self_claims`` / ``claim_winners`` /
   ``adjacent_claim_winners`` — the locking engine's claim pass: min-id
   lock acquisition as ``scatter_reduce_(..., "amin")`` on int32, which
-  is order-free and so deterministic (claims by global id, for the
-  distributed engine, wait for ROADMAP A9);
+  is order-free and so deterministic; ``claim_ids`` lets the
+  distributed engine claim by global id;
 * ``choose_dispatch`` / ``switch_on_window_width`` — the launch shape
   of a phase: every bucket's rows (``"bucket"``), or the window alone at
   its snapped width ``[B, W]`` (``"batch"``), priced by the static
@@ -182,15 +182,21 @@ def stable_top_k(score: torch.Tensor, k: int) -> torch.Tensor:
 NO_CLAIM = torch.iinfo(torch.int32).max   # "nobody claims this row"
 
 
-def scope_claims(struct, ids, sel, rows=None):
+def _claim_ids(ids, claim_ids):
+    return ids.to(torch.int32) if claim_ids is None else claim_ids
+
+
+def scope_claims(struct, ids, sel, claim_ids=None, rows=None):
     """Deterministic lock acquisition as one min-scatter: every selected
     candidate ``ids[p]`` claims its whole scope (itself and its
-    neighbour slots) with its own id.  Returns ``claim [n_rows] int32``:
-    the least id over the candidates whose scope holds the row,
+    neighbour slots) with its claim id (its row id, or ``claim_ids[p]``:
+    the distributed engine claims by global id, so the winners do not
+    depend on the partition).  Returns ``claim [n_rows] int32``: the
+    least id over the candidates whose scope holds the row,
     ``NO_CLAIM`` where unclaimed.  ``rows`` shares the candidates'
     gathered adjacency with the winner check.
     """
-    cid = ids.to(torch.int32)
+    cid = _claim_ids(ids, claim_ids)
     claim = torch.full((struct.n_rows,), NO_CLAIM, dtype=torch.int32,
                        device=ids.device)
     claim.scatter_reduce_(0, ids[sel].long(), cid[sel], "amin")
@@ -200,22 +206,22 @@ def scope_claims(struct, ids, sel, rows=None):
     return claim
 
 
-def self_claims(struct, ids, sel):
+def self_claims(struct, ids, sel, claim_ids=None):
     """Candidacy marks: each selected candidate claims its own row only,
     so ``claim[x] == NO_CLAIM`` reads "x is not pending" (the claim
     array of the edge-consistency rule)."""
+    cid = _claim_ids(ids, claim_ids)
     claim = torch.full((struct.n_rows,), NO_CLAIM, dtype=torch.int32,
                        device=ids.device)
-    return claim.scatter_reduce_(0, ids[sel].long(),
-                                 ids[sel].to(torch.int32), "amin")
+    return claim.scatter_reduce_(0, ids[sel].long(), cid[sel], "amin")
 
 
-def claim_winners(struct, ids, sel, claim, rows=None):
+def claim_winners(struct, ids, sel, claim, claim_ids=None, rows=None):
     """Full consistency: a candidate wins iff it holds the least claim on
     every row of its scope.  Winners have disjoint scopes, and the least
     candidate always wins (min-id order is the deadlock-free lock
     order of the paper's §4.2.2)."""
-    cid = ids.to(torch.int32)
+    cid = _claim_ids(ids, claim_ids)
     own = claim[ids.long()] == cid
     rows = struct.struct_rows(ids) if rows is None else rows
     nb_ok = torch.where(rows.nbr_mask, claim[rows.nbrs.long()] == cid[:, None],
@@ -223,11 +229,12 @@ def claim_winners(struct, ids, sel, claim, rows=None):
     return sel & own & nb_ok
 
 
-def adjacent_claim_winners(struct, ids, sel, claim, rows=None):
+def adjacent_claim_winners(struct, ids, sel, claim, claim_ids=None,
+                           rows=None):
     """Edge/vertex consistency over a ``self_claims`` array: a candidate
     wins iff its id is below every pending neighbour's (read locks are
     compatible).  Winners form an independent set."""
-    cid = ids.to(torch.int32)
+    cid = _claim_ids(ids, claim_ids)
     own = claim[ids.long()] == cid
     rows = struct.struct_rows(ids) if rows is None else rows
     nb_ok = torch.where(rows.nbr_mask, claim[rows.nbrs.long()] > cid[:, None],
@@ -468,14 +475,15 @@ def _apply_selected(struct, update_fn: UpdateFn, carry, ids, sel, globals_,
 
 
 def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
-                nbr_stamp=None, use_kernel: bool = True,
+                nbr_stamp=None, use_kernel: bool = True, rows=None,
                 dispatch: str = "bucket"):
     """Execute one conflict-free batch: the body every engine shares.
 
     ``carry`` is ``(vertex_data, edge_data, active, priority,
     n_updates)``; ``valid`` masks padded batch slots; tasks actually
-    executed are ``valid & active[ids]``.  ``dispatch`` is the launch
-    shape (resolve ``"auto"`` with ``choose_dispatch`` first):
+    executed are ``valid & active[ids]``.  ``rows`` shares the batch's
+    adjacency, already gathered by a claim pass, with the bucket shape.
+    ``dispatch`` is the launch shape (resolve ``"auto"`` with ``choose_dispatch`` first):
     ``"bucket"`` gathers scopes at ``max_deg`` and launches every
     bucket's rows, ``"batch"`` runs the whole body at the window's
     snapped width ``[B, W]``.  Both give bitwise-equal results:
@@ -495,7 +503,7 @@ def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
         return switch_on_window_width(struct.ell, ids, sel, at_width, carry)
     return _apply_selected(
         struct, update_fn, carry, ids, sel, globals_, nbr_stamp=nbr_stamp,
-        use_kernel=use_kernel, rows=None, batch_shaped=False)
+        use_kernel=use_kernel, rows=rows, batch_shaped=False)
 
 
 # ----------------------------------------------------------------------

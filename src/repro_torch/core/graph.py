@@ -421,6 +421,28 @@ def bucket_index(widths, slot_cnt: np.ndarray) -> np.ndarray:
     return np.searchsorted(np.asarray(widths), np.maximum(slot_cnt, 1))
 
 
+def _bucket_groups(widths, slot_cnt, bucket_sizes):
+    """Rows of each bucket (ascending ids) and the bucket sizes: empty
+    buckets dropped, or, with ``bucket_sizes``, every bucket kept at the
+    forced row count (padded with empty rows, as a ``ShardPlan`` keeps
+    one shape across shards)."""
+    bidx = bucket_index(widths, slot_cnt)
+    order = np.argsort(bidx, kind="stable")
+    cuts = np.searchsorted(bidx[order], np.arange(len(widths) + 1))
+    groups = [order[cuts[b]: cuts[b + 1]] for b in range(len(widths))]
+    if bucket_sizes is None:
+        keep = [b for b in range(len(widths)) if len(groups[b])] or [0]
+        widths = tuple(widths[b] for b in keep)
+        groups = [groups[b] for b in keep]
+        return widths, groups, [len(g) for g in groups]
+    sizes = [int(s) for s in bucket_sizes]
+    if len(sizes) != len(widths) or any(s < len(g)
+                                        for s, g in zip(sizes, groups)):
+        raise ValueError("bucket_sizes must give every bucket at least "
+                         "its rows")
+    return tuple(widths), groups, sizes
+
+
 def build_sliced_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
                      edge_ids: np.ndarray, is_src: np.ndarray,
                      pad_edge: int, widths: Sequence[int] | None = None,
@@ -429,49 +451,14 @@ def build_sliced_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
 
     Each row goes to the smallest bucket whose width covers its real
     slot count; within a bucket, rows keep ascending id order; empty
-    buckets are dropped.  The blocks are built on the host and copied
-    to ``device`` once, as one flat store each (``flat_slots``).
+    buckets are dropped.  The rows' real slots (a prefix of each row)
+    are laid out by ``sliced_ell_from_slots``, the one builder.
     """
-    device = resolve_device(device)
-    n_rows, d = nbrs.shape
-    slot_cnt = nbr_mask.sum(axis=1)
-    widths = tuple(widths) if widths is not None \
-        else default_bucket_widths(int(d))
-    if n_rows and widths[-1] < int(slot_cnt.max()):
-        raise ValueError("bucket ladder must cover every row's slot count")
-    bidx = bucket_index(widths, slot_cnt)
-    groups = [np.nonzero(bidx == b)[0] for b in range(len(widths))]
-    keep = [b for b in range(len(widths)) if len(groups[b])] or [0]
-    widths = tuple(widths[b] for b in keep)
-    groups = [groups[b] for b in keep]
-    sizes = [len(g) for g in groups]
-
-    starts = (0, *np.cumsum(sizes).tolist())
-    perm = np.full(starts[-1], n_rows, dtype=np.int32)
-    inv_perm = np.zeros(n_rows, dtype=np.int32)
-    up = lambda a: torch.from_numpy(a).to(device)
-    bn, bm, be, bs = [], [], [], []
-    for b, (g, w) in enumerate(zip(groups, widths)):
-        we = min(w, int(d))
-        nb = np.zeros((sizes[b], w), np.int32)
-        mk = np.zeros((sizes[b], w), bool)
-        ei = np.full((sizes[b], w), pad_edge, np.int32)
-        sr = np.zeros((sizes[b], w), bool)
-        nb[:, :we] = nbrs[g, :we]
-        mk[:, :we] = nbr_mask[g, :we]
-        ei[:, :we] = edge_ids[g, :we]
-        sr[:, :we] = is_src[g, :we]
-        perm[starts[b]: starts[b + 1]] = g
-        inv_perm[g] = np.arange(starts[b], starts[b + 1])
-        bn.append(nb)
-        bm.append(mk)
-        be.append(ei)
-        bs.append(sr)
-    return SlicedEll(
-        widths=widths, starts=starts, n_rows=n_rows, max_deg=int(d),
-        pad_edge=int(pad_edge),
-        slots=flat_slots((bn, bm, be, bs), starts, widths, pad_edge, device),
-        perm=up(perm), inv_perm=up(inv_perm))
+    d = int(nbrs.shape[1])
+    return sliced_ell_from_slots(
+        *padded_slots(nbrs, nbr_mask, edge_ids, is_src), pad_edge,
+        default_bucket_widths(d) if widths is None else widths, d,
+        device=device)
 
 
 # ----------------------------------------------------------------------
@@ -497,7 +484,7 @@ def candidate_width_plans(slot_cnt, max_deg: int) -> list[dict]:
     ``w_cap`` in 4..64, each carrying the ``(width, rows)`` launch
     sequence a full bucket sweep would run under that ladder — computed
     from per-row real slot counts by the chunking rule
-    ``split_hub_rows`` applies (full ``w_cap``-wide chunks land in the
+    ``virtual_rows`` applies (full ``w_cap``-wide chunks land in the
     top bucket, the remainder chunk in its covering bucket, zero-slot
     rows in bucket 0).  Scoring only: no plan is built.
     """
@@ -540,53 +527,170 @@ def choose_width_plan(slot_cnt, max_deg: int, cost_model) -> dict | None:
     return None if best is None else best[1]
 
 
-def split_hub_rows(nbrs: np.ndarray, nbr_mask: np.ndarray,
-                   edge_ids: np.ndarray, is_src: np.ndarray,
-                   pad_edge: int, w_cap: int):
-    """Chunk padded-ELL rows into ``[n_virtual, w_cap]`` virtual rows.
-
-    Row ``r`` with ``c`` real slots (prefix-filled) becomes
+def virtual_rows(seg_start: np.ndarray, cnt: np.ndarray, w_cap: int):
+    """Hub-split row slot lists: row ``r`` with ``c`` real slots becomes
     ``ceil(c / w_cap)`` virtual rows, at least one, chunk ``k`` holding
-    slots ``[k*w_cap, (k+1)*w_cap)``; columns past the padded width
-    carry the padding values.  Returns ``(nbrs, mask, edge_ids, is_src,
-    owner [n_virtual] int64, vrow_offset [n + 1] int64)``.
-    """
-    n, d = nbrs.shape
-    slot_cnt = nbr_mask.sum(axis=1).astype(np.int64)
-    nchunks = np.maximum(1, -(-slot_cnt // w_cap))
-    vrow_offset = np.zeros(n + 1, dtype=np.int64)
+    its slots ``[k*w_cap, (k+1)*w_cap)``.  Returns ``(seg_start, counts,
+    owner, vrow_offset [rows + 1])`` of the virtual rows (int64)."""
+    seg_start = np.asarray(seg_start, np.int64)
+    cnt = np.asarray(cnt, np.int64)
+    nchunks = np.maximum(1, -(-cnt // w_cap))
+    vrow_offset = np.zeros(len(cnt) + 1, dtype=np.int64)
     np.cumsum(nchunks, out=vrow_offset[1:])
-    owner = np.repeat(np.arange(n, dtype=np.int64), nchunks)
+    owner = np.repeat(np.arange(len(cnt), dtype=np.int64), nchunks)
     chunk = np.arange(len(owner), dtype=np.int64) - vrow_offset[owner]
-    cols = chunk[:, None] * w_cap + np.arange(w_cap, dtype=np.int64)
-    valid = cols < d
-    safe = np.minimum(cols, max(d - 1, 0))
-    rows = owner[:, None]
-    vn = np.where(valid, nbrs[rows, safe], 0).astype(np.int32)
-    vm = valid & nbr_mask[rows, safe]
-    ve = np.where(valid, edge_ids[rows, safe], pad_edge).astype(np.int32)
-    vs = valid & is_src[rows, safe]
-    return vn, vm, ve, vs, owner, vrow_offset
+    vcnt = np.clip(cnt[owner] - chunk * w_cap, 0, w_cap)
+    return seg_start[owner] + chunk * w_cap, vcnt, owner, vrow_offset
+
+
+def split_ell_from_slots(seg_start: np.ndarray, cnt: np.ndarray,
+                         flat: tuple, pad_edge: int, w_cap: int,
+                         max_deg: int, widths: Sequence[int] | None = None,
+                         bucket_sizes: Sequence[int] | None = None,
+                         n_virtual: int | None = None,
+                         device=None) -> SlicedEll:
+    """Hub-split row slot lists (as ``sliced_ell_from_slots`` takes
+    them) and bucket the virtual rows on the
+    ``default_bucket_widths(w_cap)`` ladder (or ``widths``): the widest
+    stored block is ``w_cap`` whatever the skew.  ``bucket_sizes`` and
+    ``n_virtual`` force one shape across a ``ShardPlan``'s shards: dummy
+    virtual rows are empty, owned by the ``rows`` sentinel, and land in
+    bucket 0."""
+    n = len(cnt)
+    vseg, vcnt, owner, off = virtual_rows(seg_start, cnt, w_cap)
+    if n_virtual is not None:
+        extra = n_virtual - len(owner)
+        if extra < 0:
+            raise ValueError("n_virtual below the virtual-row count")
+        vseg = np.concatenate([vseg, np.zeros(extra, np.int64)])
+        vcnt = np.concatenate([vcnt, np.zeros(extra, np.int64)])
+        owner = np.concatenate([owner, np.full(extra, n, np.int64)])
+    device = resolve_device(device)
+    ell = sliced_ell_from_slots(
+        vseg, vcnt, flat, pad_edge,
+        default_bucket_widths(w_cap) if widths is None else widths, w_cap,
+        bucket_sizes=bucket_sizes, device=device)
+    up = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return dataclasses.replace(
+        ell, n_rows=n, max_deg=int(max_deg), w_cap=int(w_cap),
+        n_chunks_max=int((off[1:] - off[:-1]).max()) if n else 1,
+        owner_of_vrow=up(owner), vrow_offset=up(off))
 
 
 def build_split_ell(nbrs: np.ndarray, nbr_mask: np.ndarray,
                     edge_ids: np.ndarray, is_src: np.ndarray,
                     pad_edge: int, w_cap: int, device=None) -> SlicedEll:
-    """Hub-split a padded ELL and bucket the virtual rows on the
-    ``default_bucket_widths(w_cap)`` ladder: the widest stored block is
-    ``w_cap`` whatever the skew."""
-    n, d = nbrs.shape
-    vn, vm, ve, vs, owner, off = split_hub_rows(
-        nbrs, nbr_mask, edge_ids, is_src, pad_edge, w_cap)
+    """Hub-split a padded ELL (``split_ell_from_slots`` on its rows'
+    real slots)."""
+    return split_ell_from_slots(
+        *padded_slots(nbrs, nbr_mask, edge_ids, is_src), pad_edge, w_cap,
+        int(nbrs.shape[1]), device=device)
+
+
+# ----------------------------------------------------------------------
+# Row slot lists (host side): the sliced storage without its padding
+# ----------------------------------------------------------------------
+
+def row_slots(ell: SlicedEll) -> tuple[np.ndarray, tuple]:
+    """Every stored row's real slots, in slot order, on the host:
+    ``(counts [rows] int64, (nbrs, edge_ids, is_src))`` with the slot
+    arrays flat and row after row.  The rows are the owner rows, a
+    split row's chunks joined in order (real slots are a prefix of every
+    padded row, so the chunks of a hub join into its unsplit row)."""
+    slots = [s.cpu().numpy() for s in ell.slots]
+    offs, _ = block_offsets(ell.starts, ell.widths)
+    sizes = np.diff(np.asarray(ell.starts, np.int64))
+    b = np.repeat(np.arange(ell.n_buckets), sizes)
+    local = np.arange(ell.total_rows) - np.asarray(ell.starts[:-1])[b]
+    width = np.asarray(ell.widths, np.int64)[b]
+    pos_off = np.asarray(offs, np.int64)[b] + local * width
+    pos_cnt = np.concatenate([
+        slots[1][o: o + n * w].reshape(n, w).sum(axis=1)
+        for o, n, w in zip(offs, sizes, ell.widths)]).astype(np.int64)
+    inv = ell.inv_perm.cpu().numpy().astype(np.int64)
+    cnt = pos_cnt[inv]
+    idx = segment_index(pos_off[inv], cnt)
+    if not slots[1][idx].all():
+        raise ValueError("a row's real slots must be a prefix of its row")
+    if ell.w_cap is not None:
+        off = ell.vrow_offset.cpu().numpy().astype(np.int64)
+        cnt = np.add.reduceat(cnt, off[:-1]) if len(off) > 1 else cnt[:0]
+    return cnt, (slots[0][idx], slots[2][idx], slots[3][idx])
+
+
+def segment_index(start: np.ndarray, cnt: np.ndarray) -> np.ndarray:
+    """``concat(arange(s, s + c) for s, c in zip(start, cnt))``."""
+    total = int(cnt.sum())
+    first = np.zeros(len(cnt), np.int64)
+    np.cumsum(cnt[:-1], out=first[1:])
+    return np.repeat(start - first, cnt) + np.arange(total, dtype=np.int64)
+
+
+def padded_slots(nbrs: np.ndarray, nbr_mask: np.ndarray,
+                 edge_ids: np.ndarray, is_src: np.ndarray):
+    """Host padded ELL arrays as row slot lists: ``(seg_start [rows],
+    counts [rows], (nbrs, edge_ids, is_src))``, the slot arrays flat and
+    row after row.  Every row's real slots must be a prefix of it, as
+    ``from_edges`` lays them out."""
+    nbr_mask = np.asarray(nbr_mask, bool)
+    n, d = nbr_mask.shape
+    cnt = nbr_mask.sum(axis=1).astype(np.int64)
+    lead = (np.where(nbr_mask.all(axis=1), d, nbr_mask.argmin(axis=1))
+            if d else cnt)
+    if not np.array_equal(lead, cnt):
+        raise ValueError("a row's real slots must be a prefix of its row")
+    start = np.zeros(n, np.int64)
+    np.cumsum(cnt[:-1], out=start[1:])
+    return start, cnt, (np.asarray(nbrs)[nbr_mask],
+                        np.asarray(edge_ids)[nbr_mask],
+                        np.asarray(is_src)[nbr_mask])
+
+
+def sliced_ell_from_slots(seg_start: np.ndarray, seg_cnt: np.ndarray,
+                          flat: tuple, pad_edge: int, widths: Sequence[int],
+                          max_deg: int,
+                          bucket_sizes: Sequence[int] | None = None,
+                          device=None) -> SlicedEll:
+    """A ``SlicedEll`` from row slot lists: row ``r``'s real slots are
+    ``flat[*][seg_start[r]: seg_start[r] + seg_cnt[r]]`` (``flat =
+    (nbrs, edge_ids, is_src)``).  Each row goes to the smallest bucket
+    of ``widths`` covering its slot count, rows keep ascending id order
+    within a bucket, and empty buckets are dropped, unless
+    ``bucket_sizes`` forces every bucket's row count (empty rows pad it;
+    a ``ShardPlan`` keeps its shards' shapes equal this way).  It writes
+    the flat stores directly, so no ``[rows, max_deg]`` array is ever
+    made."""
     device = resolve_device(device)
-    ell = build_sliced_ell(vn, vm, ve, vs, pad_edge=pad_edge,
-                           widths=default_bucket_widths(w_cap),
-                           device=device)
-    up = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
-    return dataclasses.replace(
-        ell, n_rows=n, max_deg=int(d), w_cap=int(w_cap),
-        n_chunks_max=int((off[1:] - off[:-1]).max()) if n else 1,
-        owner_of_vrow=up(owner), vrow_offset=up(off))
+    seg_cnt = np.asarray(seg_cnt, np.int64)
+    n_rows = len(seg_cnt)
+    widths = tuple(widths)
+    if n_rows and widths[-1] < int(seg_cnt.max()):
+        raise ValueError("bucket ladder must cover every row's slot count")
+    widths, groups, sizes = _bucket_groups(widths, seg_cnt, bucket_sizes)
+    starts = (0, *np.cumsum(sizes).tolist())
+    offs, pad = block_offsets(starts, widths)
+    perm = np.full(starts[-1], n_rows, dtype=np.int32)
+    inv_perm = np.zeros(n_rows, dtype=np.int32)
+    base = np.zeros(n_rows, np.int64)
+    for b, g in enumerate(groups):
+        k = np.arange(len(g))
+        perm[starts[b] + k] = g
+        inv_perm[g] = starts[b] + k
+        base[g] = offs[b] + k * widths[b]
+    src = segment_index(np.asarray(seg_start, np.int64), seg_cnt)
+    dst = segment_index(base, seg_cnt)
+    out = []
+    for vals, fill, dtype in zip((flat[0], None, flat[1], flat[2]),
+                                 (0, False, pad_edge, False),
+                                 (np.int32, bool, np.int32, bool)):
+        a = np.full(pad + 1, fill, dtype)
+        a[dst] = True if vals is None else vals[src]
+        out.append(torch.from_numpy(a).to(device))
+    up = lambda a: torch.from_numpy(a).to(device)
+    return SlicedEll(widths=widths, starts=starts, n_rows=n_rows,
+                     max_deg=int(max_deg), pad_edge=int(pad_edge),
+                     slots=EllRows(*out), perm=up(perm),
+                     inv_perm=up(inv_perm))
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """String-keyed engine registry: scheduler names -> execution strategies.
 
-The port of the single-device half of ``repro.core.registry``.  Every
-engine module self-registers its strategy here at import
-(``register_scheduler``), declaring the keyword arguments it accepts:
+The port of ``repro.core.registry``.  Every engine module
+self-registers its strategy here at import (``register_scheduler``, and
+``register_distributed`` for its sharded variant), declaring the keyword arguments it accepts:
 the *shared* set every strategy understands plus its per-strategy
 *extras* (``k_select`` and ``fifo`` for priority, ``max_pending`` for
 locking, ...).  ``repro_torch.api`` resolves a scheduler name through
@@ -11,11 +11,11 @@ in one place, so a keyword an engine would silently ignore raises a
 ``ValueError`` naming the legal set.
 
 Registered: ``chromatic``, ``bsp``, ``priority``, ``locking`` and
-``sequential`` (the Def. 3.1 oracle).  Out-of-tree strategies and cost
-models resolve through package entry points in the groups
-``repro_torch.schedulers`` and ``repro_torch.cost_models``.  The
-distributed (``n_shards > 1``) variants wait for ROADMAP A9:
-``get_distributed`` / ``register_distributed`` raise naming it.
+``sequential`` (the Def. 3.1 oracle); distributed (``n_shards > 1``):
+``chromatic`` and ``locking``.  The two tables are separate halves
+joined at lookup, so import order is free.  Out-of-tree strategies and
+cost models resolve through package entry points in the groups
+``repro_torch.schedulers`` and ``repro_torch.cost_models``.
 """
 from __future__ import annotations
 
@@ -28,37 +28,51 @@ from typing import Any, Callable
 # switch with no CUDA meaning).  ``device`` is a run argument of the
 # facade, not an engine option.
 SHARED_KWARGS = ("max_supersteps", "use_kernel", "dispatch", "cost_model")
-
-_A9 = ("the distributed engines (n_shards > 1, partition=) are not "
-       "ported to repro_torch yet (ROADMAP A9)")
+# The distributed variants also take the shard-plan knobs: the
+# reference's ``axis`` (a shard_map axis name) becomes ``mesh``, the
+# ``repro_torch.core.mesh`` object the shards exchange through.
+SHARED_DIST_KWARGS = SHARED_KWARGS + ("exchange_edges", "mesh")
 
 
 @dataclasses.dataclass(frozen=True)
-class SchedulerEntry:
-    """One registered scheduling strategy.
-
-    ``factory(graph, update_fn, syncs=..., **kwargs)`` builds a runner
-    exposing ``run(active=None, priority=None, num_supersteps=None)``.
-    ``shared + extras`` is the exact keyword surface the facade accepts
-    for it; anything else is a ``ValueError``.  ``stepping`` says the
-    runner is an ``ExecutorCore`` (``EngineState`` / ``_superstep``),
-    which ``until=`` / ``trace=`` / ``profile=`` stepping needs; the
-    sequential oracle sets it False.
-    """
+class _Entry:
+    """A registered factory and its keyword surface: ``shared + extras``
+    is exactly what the facade accepts for it; anything else is a
+    ``ValueError``."""
     name: str
     factory: Callable[..., Any]
     shared: tuple[str, ...] = SHARED_KWARGS
     extras: tuple[str, ...] = ()
-    needs_colors: bool = False
-    stepping: bool = True
-    description: str = ""
 
     @property
     def allowed(self) -> frozenset:
         return frozenset(self.shared) | frozenset(self.extras)
 
 
+@dataclasses.dataclass(frozen=True)
+class SchedulerEntry(_Entry):
+    """One registered scheduling strategy.
+
+    ``factory(graph, update_fn, syncs=..., **kwargs)`` builds a runner
+    exposing ``run(active=None, priority=None, num_supersteps=None)``.
+    ``stepping`` says the runner is an ``ExecutorCore`` (``EngineState``
+    / ``_superstep``), which ``until=`` / ``trace=`` / ``profile=``
+    stepping needs; the sequential oracle sets it False.
+    """
+    needs_colors: bool = False
+    stepping: bool = True
+    description: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedEntry(_Entry):
+    """The sharded variant of a scheduler: ``factory(graph, plan,
+    update_fn, syncs=..., **kwargs)`` over a prebuilt ``ShardPlan``."""
+    shared: tuple[str, ...] = SHARED_DIST_KWARGS
+
+
 _SCHEDULERS: dict[str, SchedulerEntry] = {}
+_DISTRIBUTED: dict[str, DistributedEntry] = {}
 
 
 def _same_factory(a, b) -> bool:
@@ -107,13 +121,22 @@ def register_scheduler(name: str, factory: Callable[..., Any], *,
     return entry
 
 
-def register_distributed(name: str, factory: Callable[..., Any], **_):
-    raise ValueError(_A9)
+def register_distributed(name: str, factory: Callable[..., Any], *,
+                         shared: tuple[str, ...] = SHARED_DIST_KWARGS,
+                         extras: tuple[str, ...] = ()) -> DistributedEntry:
+    prior = _guard_duplicate(_DISTRIBUTED, name, factory)
+    if prior is not None:
+        return prior
+    entry = DistributedEntry(name=name, factory=factory, shared=tuple(shared),
+                             extras=tuple(extras))
+    _DISTRIBUTED[name] = entry
+    return entry
 
 
 def _ensure_registered() -> None:
     # the engine modules register themselves on import
     import repro_torch.core.engine_bsp  # noqa: F401
+    import repro_torch.core.distributed  # noqa: F401
     import repro_torch.core.engine_chromatic  # noqa: F401
     import repro_torch.core.engine_locking  # noqa: F401
     import repro_torch.core.engine_priority  # noqa: F401
@@ -187,9 +210,18 @@ def get_scheduler(name: str) -> SchedulerEntry:
             f"{', '.join(list_schedulers())}") from None
 
 
-def get_distributed(name: str):
-    get_scheduler(name)      # unknown beats undistributable
-    raise ValueError(_A9)
+def get_distributed(name: str) -> DistributedEntry:
+    _ensure_registered()
+    if name not in _SCHEDULERS:
+        # same error text as get_scheduler: unknown beats undistributable
+        get_scheduler(name)
+    try:
+        return _DISTRIBUTED[name]
+    except KeyError:
+        raise ValueError(
+            f"scheduler {name!r} has no distributed (n_shards > 1) "
+            f"engine; distributed schedulers: "
+            f"{', '.join(sorted(_DISTRIBUTED))}") from None
 
 
 def list_schedulers() -> list[str]:

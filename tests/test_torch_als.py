@@ -447,11 +447,13 @@ def test_builders_name_the_ported_apps():
                         "bptf": bptf.build}
 
 
-def test_netflix_example_runs_on_cpu():
+@pytest.mark.parametrize("shards", [1, 4])
+def test_netflix_example_runs_on_cpu(shards):
     proc = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "netflix_als_torch.py"),
-         "--device", "cpu"],
+         "--device", "cpu", "--shards", str(shards)],
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "sync RMSE" in proc.stdout
+    assert "sync RMSE" in proc.stdout and "MPI-style ALS" in proc.stdout
+    assert ("distributed on 4 shards" in proc.stdout) == (shards == 4)

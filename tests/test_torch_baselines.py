@@ -18,9 +18,13 @@ import torch
 from repro.apps import als as ref_als
 from repro.apps import coem as ref_coem
 from repro.baselines import mapreduce as ref_mr
+from repro.baselines.mpi_als import als_mpi as ref_als_mpi
 from repro_torch import api
 from repro_torch.apps import als, coem
 from repro_torch.baselines import mapreduce as mr
+from repro_torch.baselines.mpi_als import als_mpi
+from repro_torch.core.mesh import LocalMesh
+from torch_dist_parity import als_mpi_job, run_gloo
 
 
 @pytest.mark.parametrize("n_iters", [1, 6])
@@ -93,3 +97,48 @@ def test_mapreduce_coem_reaches_same_accuracy():
     acc_eng = coem.label_accuracy(prob, st.vertex_data)
     acc_mr = coem.label_accuracy(prob, {"p": out["p"]})
     assert abs(acc_eng - acc_mr) < 0.05
+
+
+# ----------------------------------------------------------------------
+# MPI-style ALS: the factor blocks all-gathered through a mesh
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_devices", [1, 3, 8])
+def test_mpi_als_matches_reference(n_devices):
+    """Within the reference test's 1e-3 of the reference's MPI ALS (its
+    normal equations through B3's plain version here, two einsums
+    there); the gather volume is the reference's formula."""
+    args = dict(d=3, density=0.4, seed=5)
+    want_u, want_v, _ = ref_als_mpi(ref_als.synthetic_netflix(25, 20, **args),
+                                    10, lam=0.02)
+    got_u, got_v, info = als_mpi(
+        als.synthetic_netflix(25, 20, device="cpu", **args), 10,
+        n_devices=n_devices, lam=0.02)
+    np.testing.assert_allclose(got_u.numpy(), want_u, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got_v.numpy(), want_v, rtol=1e-3, atol=1e-3)
+    pad = lambda n: -(-n // n_devices) * n_devices
+    assert info["bytes_per_iter"] == (pad(25) + pad(20)) * 3 * 4 * (
+        n_devices - 1)
+
+
+def test_mpi_als_matches_mapreduce():
+    """The reference's apples-to-apples gate, on the port: MPI-style ALS
+    equals the MapReduce jobs within 1e-3."""
+    prob = als.synthetic_netflix(25, 20, d=3, density=0.4, seed=5,
+                                 device="cpu")
+    out, _ = mr.als_mapreduce(prob, 10, lam=0.02)
+    wu, wv, _ = als_mpi(prob, 10, n_devices=4, lam=0.02)
+    np.testing.assert_allclose(out["w_users"].numpy(), wu.numpy(),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(out["w_movies"].numpy(), wv.numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.distributed
+def test_mpi_als_over_gloo_ranks_equals_local_mesh(tmp_path):
+    """Four gloo processes, one factor block each, against a
+    ``LocalMesh`` of four shards: bitwise."""
+    local = als_mpi_job(LocalMesh(4, ["cpu"]))
+    ranks = run_gloo("als_mpi", 4, tmp_path)
+    for k, v in local.items():
+        np.testing.assert_array_equal(ranks[k], np.asarray(v), err_msg=k)

@@ -979,3 +979,82 @@ def test_auto_under_a_model_equals_the_forced_arm_on_card(cuda, pick):
                            forced.vertex_data["rank"]), sched
         assert (auto.superstep, auto.n_updates) == (forced.superstep,
                                                     forced.n_updates)
+
+
+# ----------------------------------------------------------------------
+# The distributed engines: eight shards on the card == on the CPU
+# ----------------------------------------------------------------------
+
+def _zipf2k(device, app):
+    from repro_torch.apps import cc
+    edges = zipf_edges(2000, alpha=2.0, max_deg=64, seed=1)
+    if app == "cc":
+        return cc.build(edges, 2000, device=device)
+    return pagerank.build(edges, 2000, eps=1e-4, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,sched", [("pagerank", "chromatic"),
+                                       ("cc", "chromatic"),
+                                       ("cc", "locking")])
+def test_local_mesh_on_card_equals_cpu(cuda, app, sched):
+    """A ``LocalMesh`` of 8 shards on the card against the same 8 shards
+    on the CPU (two-phase partition, seed 0): bitwise, counts included,
+    and the kernel launched on the card."""
+    key = "rank" if app == "pagerank" else "label"
+    opts = {"scheduler": sched}
+    if sched == "locking":
+        opts["max_pending"] = 64
+    runs = []
+    for dev in ("cpu", cuda):
+        g, upd, syncs = _zipf2k(dev, app)
+        before = port.ell_spmv.launches
+        runs.append(api.run(g, upd, syncs=syncs, n_shards=8, device=dev,
+                            max_supersteps=4000, **opts))
+        launched = port.ell_spmv.launches - before
+    cpu, gpu = runs
+    assert torch.equal(cpu.vertex_data[key], gpu.vertex_data[key].cpu())
+    assert (cpu.superstep, cpu.n_updates) == (gpu.superstep, gpu.n_updates)
+    assert not gpu.active_any
+    if app == "pagerank":
+        assert launched > 0
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_at_world_size_one_equals_local_mesh(cuda):
+    """``ProcessGroupMesh`` over NCCL (one rank, a TCP store on
+    localhost) runs the 2k PageRank bitwise the ``LocalMesh`` run."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.mesh import ProcessGroupMesh
+    g, upd, syncs = _zipf2k(cuda, "pagerank")
+    zeros = np.zeros(2000, np.int64)
+    local = api.run(g, upd, syncs=syncs, n_shards=1, partition=zeros,
+                    device=cuda)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port_no = sock.getsockname()[1]
+    store = dist.TCPStore("localhost", port_no, 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        pg = api.run(g, upd, syncs=syncs, n_shards=1, partition=zeros,
+                     device=cuda, mesh=ProcessGroupMesh(device=cuda))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(local.vertex_data["rank"], pg.vertex_data["rank"])
+    assert (local.superstep, local.n_updates) == (pg.superstep, pg.n_updates)
+
+
+@pytest.mark.cuda
+def test_mpi_als_on_card_equals_cpu(cuda):
+    from repro_torch.baselines.mpi_als import als_mpi
+    got = []
+    for dev in ("cpu", cuda):
+        prob = als.synthetic_netflix(200, 60, d=8, density=0.2, seed=3,
+                                     device=dev)
+        wu, wv, _ = als_mpi(prob, 5, n_devices=4, lam=0.02)
+        got.append(torch.cat([wu, wv]).cpu())
+    # normal equations bitwise; LAPACK's and cuSOLVER's LU differ
+    torch.testing.assert_close(got[1], got[0], rtol=1e-4, atol=1e-5)

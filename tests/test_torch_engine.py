@@ -285,9 +285,10 @@ def test_route_and_dense_fold_match_reference():
 
 def test_unported_options_raise(monkeypatch):
     """The sequential oracle and ``trace=`` are ported (ROADMAP A7):
-    they run.  The distributed engines, fault tolerance and online
-    serving still raise, naming A9, A10 and A11; an inapplicable option
-    raises the reference's message; no GPU and no device raises."""
+    they run, and so do the distributed engines (A9).  Fault tolerance
+    and online serving still raise, naming A10 and A11; an inapplicable
+    option (``exchange_edges`` on one device) raises the reference's
+    message; no GPU and no device raises."""
     n, edges_fn, eps = ENGINE_GRAPHS["quickstart"]
     g, upd, syncs = pagerank.build(edges_fn(), n, eps=eps, device="cpu")
     res = api.run(g, upd, syncs=syncs, scheduler="sequential",
@@ -298,9 +299,13 @@ def test_unported_options_raise(monkeypatch):
     traced = api.run(g, upd, syncs=syncs, trace=True, num_supersteps=3,
                      device="cpu")
     assert [r["superstep"] for r in traced.trace] == [1, 2, 3]
-    for kwargs, item in ((dict(n_shards=2), "A9"),
-                         (dict(partition=np.zeros(n, np.int64)), "A9"),
-                         (dict(exchange_edges=True), "A9"),
+    plain = api.run(g, upd, syncs=syncs, device="cpu")
+    for kwargs in (dict(n_shards=2), dict(partition=np.zeros(n, np.int64))):
+        dist = api.run(g, upd, syncs=syncs, device="cpu", **kwargs)
+        assert torch.equal(dist.vertex_data["rank"], plain.vertex_data["rank"])
+        assert (dist.superstep, dist.n_updates) == (plain.superstep,
+                                                    plain.n_updates)
+    for kwargs, item in ((dict(exchange_edges=True), "does not accept"),
                          (dict(checkpoint_every=2), "A10"),
                          (dict(slack=2), "A11")):
         with pytest.raises(ValueError, match=item):

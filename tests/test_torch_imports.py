@@ -55,3 +55,12 @@ def test_every_subpackage_is_scanned():
                    if p.is_dir() and (p / "__init__.py").exists()}
     assert "profile" in subpackages and subpackages <= scanned
     assert pkg / "profile" / "calibrate.py" in FILES
+
+
+def test_the_distributed_modules_are_scanned():
+    """The distributed engines' modules (mesh, partition, plan and
+    engines, MPI-style ALS) stand alone too."""
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("core/mesh.py", "core/partition.py", "core/distributed.py",
+                "core/engine_locking.py", "baselines/mpi_als.py"):
+        assert pkg / rel in FILES, rel

@@ -468,10 +468,15 @@ def test_cost_model_plugin_resolves_by_name(monkeypatch):
 
 
 def test_distributed_registry_names_a9():
-    with pytest.raises(ValueError, match="A9"):
-        registry.get_distributed("locking")
-    with pytest.raises(ValueError, match="A9"):
+    """A9 is ported: the distributed entries resolve, a taken name
+    refuses another factory, and a scheduler without a distributed
+    variant or an unknown one raises the reference's messages."""
+    entry = registry.get_distributed("locking")
+    assert "max_pending" in entry.allowed and "mesh" in entry.allowed
+    with pytest.raises(ValueError, match="already registered"):
         registry.register_distributed("locking", object)
+    with pytest.raises(ValueError, match="no distributed"):
+        registry.get_distributed("priority")
     with pytest.raises(ValueError, match="registered schedulers"):
         registry.get_distributed("no-such-engine")
 
