@@ -129,9 +129,13 @@ Phases (any failure exits non-zero and prints no result):
                  combine at ``[32768 * s, F]``; MapReduce ALS's reduce
                  of phase 7's 10,047,239 ratings (``[Ne, 400]`` and
                  ``[Ne, 20]`` into 17,770 and 48,019 segments); stress
-                 cases (empty segments, a segment of 5,000 rows, sentinel
-                 rows, -0.0, F = 7, bf16), timed beside the plain
-                 version, ``index_add_`` and the bound; B1's split sweep
+                 cases (empty segments, segments of 5,000 and 2^20
+                 rows, one longer than a stage at F = 400, sentinel
+                 rows, -0.0, F = 7, bf16, spans and arrays off 16
+                 bytes, rows across stages, ragged and empty tiles,
+                 int32 and int64 offsets; the long ones timed), timed
+                 beside the plain version, ``index_add_`` and the
+                 bound; B1's split sweep
                  and its windows at W <= w_cap beside phase 11's;
 15. split and app parity — the 2k Zipf graph split at w_cap = 8:
                  PageRank GPU == CPU in every engine x {bucket, batch} x
@@ -2342,6 +2346,23 @@ def np_split_uniform(np, keys):
             bits.view(np.float32) - np.float32(1.0))
 
 
+def segment_bound(y, offsets):
+    """``(ms, "bytes" or "operations")``: the least time for
+    ``segment_sum_csr(y, offsets)`` on the card, the larger of the bytes
+    it must move (y's rows inside the segments, the offsets, the output)
+    over the HBM rate and one add an input element over the float32
+    rate."""
+    n_rows = offsets.numel() - 1
+    used = int(offsets[-1])
+    feat = y[0].numel() if y.shape[0] else 0
+    elt = y.element_size()
+    nbytes = (used * feat * elt + offsets.numel() * offsets.element_size()
+              + n_rows * feat * elt)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, used * feat / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def segment_case(torch, label, y, offsets, flush, reps=20, plain_reps=2):
     """``segment_sum_csr`` on ``(y, offsets)`` against its plain version
     (bitwise), timed beside it, ``index_add_`` of the same rows (the
@@ -2375,12 +2396,7 @@ def segment_case(torch, label, y, offsets, flush, reps=20, plain_reps=2):
                             plain_reps, flush)
     lib_ms, _ = time_cuda(torch, lib, reps, flush)
     feat = out[0].numel() if out.numel() else 0
-    elt = y.element_size()
-    nbytes = (used * feat * elt + offsets.numel() * offsets.element_size()
-              + n_rows * feat * elt)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, used * feat / F32_FLOPS
-    bms = 1e3 * max(t_bytes, t_ops)
-    by = "bytes" if t_bytes >= t_ops else "operations"
+    bms, by = segment_bound(y, offsets)
     log(f"{label}: y [{y.shape[0]}, {feat}] into {n_rows} segments (longest "
         f"{int(counts.max()) if n_rows else 0}): kernel {ms:.4f} ms "
         f"({call_ms:.4f} with the host), plain {plain_ms:.4f}, index_add_ "
@@ -2391,37 +2407,88 @@ def segment_case(torch, label, y, offsets, flush, reps=20, plain_reps=2):
                 bound_by=by, max_abs_err=err)
 
 
-def segment_stress(torch, dev, gen):
+def segment_stress(torch, dev, gen, flush):
     """The kernel's edge cases against its plain version, bitwise:
-    empty segments, a segment longer than a block, sentinel rows past
-    the last segment, -0.0 inputs (a segment of them sums to +0.0),
-    feature counts that are not a multiple of 4, bf16 input."""
+    empty segments, segments longer than a stage, sentinel rows past the
+    last segment, -0.0 inputs (a segment of them sums to +0.0), feature
+    counts that are not a multiple of 4, bf16 input, spans and arrays
+    whose first byte is not 16-byte aligned, segments whose rows cross
+    stage boundaries, a tile count that does not divide the segments,
+    tiles with no rows, int32 and int64 offsets.  The case with a
+    segment of 2^20 rows is held against the host's serial sum
+    (``segment_sum_csr_serial``, the same adds; the plain version would
+    loop over 2^20 positions).  It and the 5,000-row case are timed: a
+    segment of L rows costs L dependent adds from shared memory."""
     from repro_torch.kernels.segment_combine import (segment_sum_csr,
-                                                     segment_sum_csr_plain)
+                                                     segment_sum_csr_plain,
+                                                     segment_sum_csr_serial)
     cases = []
-    for label, n_rows, feat, longest, tail, empty, dtype in (
-            ("empty segments", 4000, (4,), 5, 0, True, torch.float32),
-            ("a segment of 5,000 rows", 300, (4,), 5000, 0, False,
-             torch.float32),
-            ("sentinel tail", 3000, (32,), 5, 1000, False, torch.float32),
-            ("-0.0 inputs", 3000, (5,), 5, 0, False, torch.float32),
-            ("F = 7", 3000, (7,), 5, 0, False, torch.float32),
-            ("F = 1", 100_000, (1,), 5, 0, False, torch.float32),
-            ("bf16, F = 20", 3000, (20,), 5, 17, False, torch.bfloat16)):
-        counts = torch.randint(0, 6, (n_rows,), generator=gen, device=dev)
+    # (label, n_rows, feat, longest, tail, empty, dtype, offsets' dtype,
+    #  first row, rows of x cut off its front, largest other segment)
+    table = (
+        ("empty segments", 4000, (4,), 5, 0, True, torch.float32,
+         torch.int64, 0, 0, 5),
+        ("a segment of 5,000 rows", 300, (4,), 5000, 0, False,
+         torch.float32, torch.int64, 0, 0, 5),
+        ("sentinel tail", 3000, (32,), 5, 1000, False, torch.float32,
+         torch.int64, 0, 0, 5),
+        ("-0.0 inputs", 3000, (5,), 5, 0, False, torch.float32, torch.int64,
+         0, 0, 5),
+        ("F = 7", 3000, (7,), 5, 0, False, torch.float32, torch.int64, 0, 0,
+         5),
+        ("F = 1", 100_000, (1,), 5, 0, False, torch.float32, torch.int64, 0,
+         0, 5),
+        ("bf16, F = 20", 3000, (20,), 5, 17, False, torch.bfloat16,
+         torch.int64, 0, 0, 5),
+        ("a segment of 2^20 rows, F = 1", 64, (1,), 1 << 20, 0, False,
+         torch.float32, torch.int64, 0, 0, 5),
+        ("a segment longer than a stage, F = 400", 16, (400,), 100, 0,
+         False, torch.float32, torch.int64, 0, 0, 5),
+        ("unaligned spans, F = 1, odd offsets", 50_001, (1,), 5, 3, False,
+         torch.float32, torch.int32, 3, 1, 5),
+        ("unaligned spans, F = 7, odd offsets", 5_001, (7,), 5, 3, False,
+         torch.float32, torch.int64, 1, 3, 5),
+        ("unaligned spans, bf16 F = 20, odd offsets", 3_001, (20,), 5, 1,
+         False, torch.bfloat16, torch.int32, 5, 1, 5),
+        ("segments across stages, F = 1", 20_000, (1,), 2000, 0, False,
+         torch.float32, torch.int64, 0, 0, 300),
+        ("segments across stages, F = 32", 2_000, (32,), 700, 0, False,
+         torch.float32, torch.int32, 0, 0, 200),
+        ("n_rows not a multiple of the tile, F = 1", 10_007, (1,), 5, 0,
+         False, torch.float32, torch.int32, 0, 0, 5),
+        ("all-empty tiles, F = 1", 10_000, (1,), 0, 0, True, torch.float32,
+         torch.int64, 0, 0, 5),
+        ("int32 offsets, F = 32", 4_000, (32,), 5, 0, False, torch.float32,
+         torch.int32, 0, 0, 5),
+        ("sentinel tail, unaligned end, F = 1", 3_001, (1,), 5, 3, False,
+         torch.float32, torch.int32, 0, 0, 5),
+    )
+    for (label, n_rows, feat, longest, tail, empty, dtype, off_dtype, first,
+         cut, most) in table:
+        counts = torch.randint(0, most + 1, (n_rows,), generator=gen,
+                               device=dev)
         if empty:
             counts[::2] = 0
+        if label.startswith("all-empty"):
+            counts[:-10] = 0
         counts[n_rows // 2] = longest
         offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
         offsets[1:] = torch.cumsum(counts, 0)
-        y = torch.randn((int(offsets[-1]) + tail,) + feat, generator=gen,
-                        device=dev)
+        offsets += first
+        n_src = int(offsets[-1]) + tail
+        base = torch.randn((n_src + cut,) + feat, generator=gen,
+                           device=dev).to(dtype)
+        y = base[cut:]             # x's first byte not 16-byte aligned
+        if cut:
+            assert y.data_ptr() % 16, label
         if label == "-0.0 inputs":
             y[torch.rand(y.shape, generator=gen, device=dev) < 0.5] = -0.0
             y[int(offsets[1]):int(offsets[2])] = -0.0
-        y = y.to(dtype)
+        offsets = offsets.to(off_dtype)
         got = segment_sum_csr(y, offsets)
-        want = segment_sum_csr_plain(y, offsets)
+        reference = (segment_sum_csr_serial if longest > 5000
+                     else segment_sum_csr_plain)
+        want = reference(y, offsets).to(dev)
         torch.cuda.synchronize()
         mism = bits_differ(torch, got, want)
         if mism:
@@ -2429,6 +2496,11 @@ def segment_stress(torch, dev, gen):
                                  "differ from the plain version")
         if label == "-0.0 inputs" and bool(torch.signbit(got[1]).any()):
             raise AssertionError("a segment of -0.0 did not sum to +0.0")
+        if longest >= 5000:
+            ms, _ = time_cuda(torch, lambda: segment_sum_csr(y, offsets), 3,
+                              flush)
+            log(f"segment stress {label}: {ms:.4f} ms, "
+                f"{1e6 * ms / longest:.3f} ns a row of the long segment")
         cases.append(label)
     log(f"segment_combine stress cases, bitwise against plain: {cases}")
 
@@ -2562,7 +2634,7 @@ def phase_split_kernels(torch, ctx):
             (msg * r[:, None]).contiguous(), shuffle.offsets, flush))
         del msg
     release(torch, ctx)
-    segment_stress(torch, dev, gen)
+    segment_stress(torch, dev, gen, flush)
     ctx["split_seg_cases"] = seg_cases
     ctx["split_b1_cases"] = b1_cases
     unsplit = {c["label"]: c for c in ctx.get("sched_kernel_cases", [])}

@@ -353,11 +353,6 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
         options["use_kernel"] = use_kernel
     if trace is False:
         trace = None          # "tracing off", not a trace callable
-    if num_supersteps is not None and (
-            isinstance(num_supersteps, bool)
-            or not isinstance(num_supersteps, int) or num_supersteps < 0):
-        raise ValueError(f"num_supersteps must be a non-negative int, got "
-                         f"{num_supersteps!r}")
     device = resolve_device(device)
     distributed = EngineSpec(scheduler=scheduler,
                              n_shards=n_shards).distributed(partition)

@@ -37,6 +37,7 @@ from repro_torch.core.graph import DataGraph
 from repro_torch.core.update import Consistency, UpdateFn, UpdateResult
 from conftest import random_graph
 from torch_parity import reference_arrays
+from test_torch_engine import _fma_combine_update
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -300,6 +301,24 @@ def test_invalid_scalar_knobs_rejected(pr):
         api.build_engine(g, upd, scheduler="locking", max_pending=0,
                          partition=np.zeros(g.n_vertices, np.int64),
                          device="cpu")
+
+
+@pytest.mark.parametrize("steps", [-1, 0, True])
+def test_num_supersteps_edge_values_match_reference(steps):
+    """``num_supersteps`` is passed through as the reference passes it:
+    -1 and 0 run no superstep, True runs one.  The combine is fused as
+    XLA fuses it (fault C2), so the ranks are held bitwise."""
+    edges = zipf_edges(60, seed=0)
+    rg, rupd, rsyncs = ref_pagerank.build(edges, 60)
+    want = ref_api.run(rg, rupd, syncs=rsyncs, num_supersteps=steps)
+    got = api.run(_port(rg), _fma_combine_update(1e-4),
+                  syncs=[pagerank.total_rank_sync()], num_supersteps=steps,
+                  device="cpu")
+    assert (got.superstep, got.n_updates) == (want.superstep,
+                                              want.n_updates)
+    assert got.superstep == int(steps > 0)
+    np.testing.assert_array_equal(got.vertex_data["rank"].numpy(),
+                                  np.asarray(want.vertex_data["rank"]))
 
 
 def test_registry_rejects_hijacking_a_taken_name():

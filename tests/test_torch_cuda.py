@@ -848,6 +848,90 @@ def test_segment_sum_kernel_matches_plain_version_bitwise(cuda, case, dtype):
     assert torch.equal(got.cpu(), sc.segment_sum_csr(y.cpu(), offsets.cpu()))
 
 
+def _segment_edge_case(case, off_dtype, device):
+    """``(y, offsets)`` of an edge case of the staged kernel: spans and
+    arrays that do not start on 16 bytes, segments longer than a stage
+    or whose rows cross stages, ragged and empty tiles, feature slabs,
+    decreasing offsets."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n_rows, feat, most, first, cut, tail = 3000, (1,), 5, 0, 0, 0
+    dtype = torch.float32
+    lengths = None
+    if case == "seg_2p20":
+        n_rows = 64
+        lengths = rng.integers(0, 6, n_rows)
+        lengths[31] = 1 << 20
+    elif case == "longer_than_a_stage_f400":
+        n_rows, feat = 16, (400,)
+        lengths = rng.integers(0, 6, n_rows)
+        lengths[8] = 100
+    elif case == "unaligned_f1":
+        first, cut, tail = 3, 1, 3
+    elif case == "unaligned_f7":
+        feat, first, cut, tail = (7,), 1, 3, 2
+    elif case == "unaligned_bf16_f20":
+        feat, first, cut, tail, dtype = (20,), 5, 1, 1, torch.bfloat16
+    elif case == "across_stages_f1":
+        n_rows, most = 20_000, 300
+    elif case == "across_stages_f32":
+        n_rows, feat, most = 2000, (32,), 200
+    elif case == "ragged_tiles":
+        n_rows = 10_007
+    elif case == "empty_tiles":
+        n_rows = 10_000
+        lengths = np.zeros(n_rows, np.int64)
+        lengths[-10:] = rng.integers(1, 6, 10)
+    elif case == "slabs":
+        n_rows, feat, most = 7, (5000,), 3
+    elif case == "empty_x":
+        lengths = np.zeros(n_rows, np.int64)
+    if lengths is None:
+        lengths = rng.integers(0, most + 1, n_rows)
+    offsets = np.concatenate([[0], np.cumsum(lengths)]) + first
+    if case == "decreasing":
+        offsets = rng.integers(-5, int(offsets[-1]) + 5, n_rows + 1)
+    n_src = max(int(offsets[-1]), 0) + tail
+    base = torch.from_numpy(rng.normal(size=(n_src + cut,) + feat).astype(
+        np.float32)).to(device).to(dtype)
+    y = base[cut:]              # x's first byte off 16 bytes when cut
+    return y, torch.from_numpy(offsets).to(off_dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", [
+    "seg_2p20", "longer_than_a_stage_f400", "unaligned_f1", "unaligned_f7",
+    "unaligned_bf16_f20", "across_stages_f1", "across_stages_f32",
+    "ragged_tiles", "empty_tiles", "slabs", "empty_x", "decreasing"])
+def test_segment_sum_kernel_edge_cases_bitwise(cuda, case, off_dtype):
+    """The staged kernel against its plain version (the host's serial
+    sum for the segment of 2^20 rows), bitwise, with either offset
+    type."""
+    from repro_torch.kernels import segment_combine as sc
+    y, offsets = _segment_edge_case(case, off_dtype, cuda)
+    want = (sc.segment_sum_csr_serial if case == "seg_2p20"
+            else sc.segment_sum_csr_plain)(y.cpu(), offsets.cpu())
+    before = sc.segment_sum_csr.launches
+    got = sc.segment_sum_csr(y, offsets)
+    torch.cuda.synchronize()
+    assert sc.segment_sum_csr.launches == before + 1
+    view = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == y.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu().view(view), want.view(view))
+
+
+@pytest.mark.cuda
+def test_segment_sum_launch_plan_is_the_builds(cuda):
+    """The loaded build reports the geometry the CPU tests plan with,
+    and its plans fit the card's shared memory."""
+    from repro_torch.kernels import segment_combine as sc
+    assert sc.geometry() == sc.DEFAULT_GEOMETRY
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = sc.launch_plan(2_097_152, 2_133_236, 1, 4, 4, n_sm)
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert plan.smem_bytes <= limit
+
+
 @pytest.mark.cuda
 def test_segment_combine_on_card_takes_ids_in_any_order(cuda):
     from repro_torch.kernels import segment_combine as sc

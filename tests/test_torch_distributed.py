@@ -72,6 +72,13 @@ _REF_SCRIPT = """
         exchange_edges=True).run()
     out.update(lbp_belief=np.asarray(r["vertex_data"]["belief"]),
                lbp_counts=[r["n_updates"], r["supersteps"]])
+    from repro import api
+    from repro.core.graph import zipf_edges
+    gz, updz, syncz = pagerank.build(zipf_edges(60, seed=0), 60)
+    for i, steps in enumerate((-1, 0, True)):
+        r = api.run(gz, updz, syncs=syncz, n_shards=8, num_supersteps=steps)
+        out[f"steps{i}_rank"] = np.asarray(r.vertex_data["rank"])
+        out[f"steps{i}_counts"] = [r.n_updates, r.superstep]
     np.savez(OUT, **out)
 """
 
@@ -341,6 +348,21 @@ def test_coem_matches_reference(ref):
     got = _run_port("coem")
     assert np.abs(got["vertex_data"]["p"].numpy()
                   - ref["coem_p"]).max() < 1e-6
+
+
+@pytest.mark.parametrize("i,steps", list(enumerate((-1, 0, True))))
+def test_num_supersteps_edge_values_match_reference(ref, i, steps):
+    """The facade passes ``num_supersteps`` to the distributed engine as
+    the reference does: -1 and 0 run no superstep, True runs one.  The
+    combine is fused as XLA fuses it (fault C2), so ranks are bitwise."""
+    g, _, syncs = pagerank.build(zipf_edges(60, seed=0), 60, device="cpu")
+    got = api.run(g, _fma_combine_update(1e-4), syncs=syncs, n_shards=8,
+                  num_supersteps=steps, device="cpu")
+    assert isinstance(got.engine.mesh, LocalMesh)
+    np.testing.assert_array_equal(got.vertex_data["rank"].numpy(),
+                                  ref[f"steps{i}_rank"])
+    assert [got.n_updates, got.superstep] == ref[f"steps{i}_counts"].tolist()
+    assert got.superstep == int(steps > 0)
 
 
 def test_lbp_with_edge_exchange_matches_reference(ref):

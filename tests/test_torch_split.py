@@ -14,6 +14,8 @@
   rtol = atol = 1e-5 of the reference's split run (ROADMAP C2: XLA fuses
   the reference's combine into an FMA), CC bitwise, counts included.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from repro_torch.core.engine_locking import (conflict_winners,
 from repro_torch.core.update import (Consistency, UpdateResult,
                                      aggregator_update)
 from repro_torch.kernels.als_normal_eq import als_normal_eq
+from repro_torch.kernels import segment_combine as sc
 from repro_torch.kernels.segment_combine import (segment_combine,
                                                  segment_offsets,
                                                  segment_sum_csr,
@@ -131,10 +134,146 @@ def _serial(rows):
 @pytest.mark.parametrize("offsets,err", [
     (torch.zeros((2, 2), dtype=torch.int64), "1-D"),
     (torch.zeros(3, dtype=torch.float32), "int32 or int64"),
+    (torch.zeros(0, dtype=torch.int64), "1-D"),
+    (torch.zeros(3, dtype=torch.int64, device="meta"), "y is on cpu"),
 ])
 def test_segment_sum_csr_rejects_bad_offsets(offsets, err):
     with pytest.raises(ValueError, match=err):
         segment_sum_csr(torch.zeros(4, 2), offsets)
+
+
+@pytest.mark.parametrize("y,err", [
+    (torch.tensor(1.0), "leading row axis"),
+    (torch.zeros(4, 2, device="meta"), "runs on cuda or cpu"),
+])
+def test_segment_sum_csr_rejects_bad_rows(y, err):
+    with pytest.raises(ValueError, match=err):
+        segment_sum_csr(y, torch.zeros(3, dtype=torch.int64,
+                                       device=y.device))
+
+
+def test_segment_sum_csr_serial_is_the_plain_version():
+    """The host's serial sum (the card checks' reference for a segment
+    too long for the plain version's loop) is the plain version's adds:
+    bitwise in float32 and bf16, -0.0 inputs, empty and clamped
+    segments, a row of x with no rows."""
+    rng = np.random.default_rng(21)
+    y = torch.from_numpy(rng.normal(size=(20_000, 3)).astype(np.float32))
+    y[::7] = -0.0
+    for off in ([0, 0, 5, 16_000, 16_001, 19_990], [-3, 4, 2, 25_000]):
+        off = torch.tensor(off)
+        for t in (y, y.bfloat16()):
+            view = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(sc.segment_sum_csr_serial(t, off).view(view),
+                               segment_sum_csr_plain(t, off).view(view))
+    empty = torch.zeros((0, 3))
+    off = torch.tensor([0, 0, 0])
+    assert torch.equal(segment_sum_csr_plain(empty, off), torch.zeros(2, 3))
+    assert torch.equal(sc.segment_sum_csr_serial(empty, off),
+                       torch.zeros(2, 3))
+
+
+# The card's launch plan: the B2 shapes of the main path (rows, x rows),
+# a window chunk combine, MapReduce ALS's reduces, and small ones
+_PLAN_SHAPES = [(2_097_152, 2_133_236), (1_130_479, 1_158_437),
+                (32_768, 131_072), (17_770, 10_047_239),
+                (48_019, 10_047_239), (1, 0), (3, 5), (10_007, 30_000)]
+
+
+@pytest.mark.parametrize("off_bytes", [4, 8])
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("feat", [1, 2, 7, 20, 32, 64, 129, 400])
+def test_launch_plan_fits_the_card(feat, elt, off_bytes):
+    """Every plan keeps a block's shared memory within Hopper's 227 KB
+    and the SM's 228 KB, a tile within the build's pairs, and a
+    persistent grid of at most ``blocks_per_sm`` a SM and no more blocks
+    than tiles; a tile's x averages ``tile_bytes`` where the pairs
+    allow."""
+    geom = sc.DEFAULT_GEOMETRY
+    for n_sm in (1, 132):
+        for n_rows, n_src in _PLAN_SHAPES:
+            p = sc.launch_plan(n_rows, n_src, feat, elt, off_bytes, n_sm)
+            assert p.smem_bytes <= sc.SMEM_BLOCK
+            assert p.blocks_per_sm * (p.smem_bytes
+                                      + sc.SMEM_RESERVED) <= sc.SMEM_SM
+            assert 1 <= p.blocks_per_sm <= geom.blocks_per_sm
+            pairs = geom.threads * geom.pairs
+            assert 1 <= p.tile_rows and p.tile_rows * p.slab <= pairs
+            assert (p.n_slabs, p.slab) == (1, feat)
+            assert p.n_items == -(-n_rows // p.tile_rows)
+            assert 1 <= p.grid <= min(p.n_items, p.blocks_per_sm * n_sm)
+            assert 2 <= p.n_stages <= geom.max_stages
+            assert 16 <= p.stage_x <= geom.stage_bytes
+            assert p.stage_x % 16 == 0
+            stage = (p.smem_bytes - geom.barrier_bytes) // p.n_stages
+            assert p.smem_bytes == geom.barrier_bytes + p.n_stages * stage
+            off_area = stage - p.stage_x
+            assert off_area % 16 == 0
+            assert off_area >= (p.tile_rows + 1) * off_bytes + 30
+            # the ring fills the block's share: one more stage would not fit
+            share = min(sc.SMEM_BLOCK,
+                        sc.SMEM_SM // p.blocks_per_sm - sc.SMEM_RESERVED)
+            assert (p.n_stages == geom.max_stages
+                    or p.smem_bytes + stage > share)
+            # an average tile's x fits its stage, or the stage is the
+            # largest that leaves room for MIN_STAGES
+            x_tile = p.tile_rows * n_src * feat * elt // n_rows
+            assert (x_tile <= p.stage_x or p.stage_x == geom.stage_bytes
+                    or p.stage_x + off_area + 16
+                    > (share - geom.barrier_bytes) // sc.MIN_STAGES)
+            spread = -(-n_rows // (2 * geom.blocks_per_sm * n_sm))
+            if n_src and p.tile_rows not in (1, pairs // feat, spread):
+                assert geom.tile_bytes / 2 <= x_tile <= geom.tile_bytes
+            assert p.tile_rows <= max(1, spread)
+
+
+def test_launch_plan_stages_hold_whole_segments_of_alss_reduce():
+    """MapReduce ALS's ``[Ne, 20]`` reduces (a user's ~209 rows are 16.7
+    KB, a movie's ~565 are 45 KB): a tile of whole segments fits one
+    stage, so each (segment, feature) pair is one uninterrupted chain,
+    and the user job's tiles hold two segments, twice the chains; the
+    owner combine's tiles are 2,048 single-row segments."""
+    users = sc.launch_plan(48_019, 10_047_239, 20, 4, 8, 132)
+    assert users.tile_rows == 2 and users.n_stages == 2
+    assert users.stage_x >= 2 * 10_047_239 * 80 // 48_019
+    movies = sc.launch_plan(17_770, 10_047_239, 20, 4, 8, 132)
+    assert movies.tile_rows == 1
+    assert movies.stage_x >= 10_047_239 * 80 // 17_770
+    owner = sc.launch_plan(2_097_152, 2_133_236, 1, 4, 4, 132)
+    assert owner.tile_rows == 2048 and owner.n_stages >= 4
+
+
+def test_launch_plan_cuts_wide_rows_into_slabs():
+    geom = sc.DEFAULT_GEOMETRY
+    pairs = geom.threads * geom.pairs
+    p = sc.launch_plan(7, 21, pairs * 2 + 1, 4, 8, 132)
+    assert (p.tile_rows, p.slab, p.n_slabs, p.n_items) == (1, pairs, 3, 21)
+    assert p.grid == 21
+    # a tile's offsets too many for a block's share of two: one block an
+    # SM, and stages small enough for two of them
+    wide = sc.Geometry(pairs=48, tile_bytes=1 << 20)
+    p = sc.launch_plan(1 << 22, 1 << 22, 1, 4, 8, 1, wide)
+    assert (p.tile_rows, p.blocks_per_sm, p.n_stages) == (12_288, 1, 2)
+    assert p.stage_x == ((232_448 - 256) // 2 - 98_352) // 16 * 16
+    with pytest.raises(ValueError, match="shared memory"):
+        sc.launch_plan(1 << 22, 1 << 22, 1, 4, 8, 1,
+                       sc.Geometry(pairs=64, tile_bytes=1 << 20))
+    with pytest.raises(ValueError, match="no launch"):
+        sc.launch_plan(0, 100, 1, 4, 8, 132)
+
+
+def test_default_geometry_is_the_sources():
+    """The wrapper's ``DEFAULT_GEOMETRY`` is ``csrc/segment_combine.cu``'s
+    ``SEG_*`` defaults (the card test checks the loaded build's)."""
+    import re
+    src = (Path(sc.__file__).parent / "csrc" / "segment_combine.cu"
+           ).read_text()
+    macros = dict(re.findall(r"#define SEG_(\w+) (\d+)", src))
+    geom = sc.DEFAULT_GEOMETRY
+    assert {k.lower(): int(v) for k, v in macros.items()
+            if k.lower() in vars(geom)} == {
+        k: v for k, v in vars(geom).items() if k != "barrier_bytes"}
+    assert f"kBarrierBytes = {geom.barrier_bytes};" in src
 
 
 def test_als_normal_eq_over_virtual_rows_plus_combine_equals_unsplit():
