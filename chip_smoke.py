@@ -207,12 +207,45 @@ Phases (any failure exits non-zero and prints no result):
                  ``device_count`` where there are more cards); B1, B2 and
                  B3 at the shard shapes against their plain versions,
                  timed beside the library call and the bound;
-19. report     — a ``{"kernels": [...]}`` line, then the contract line
+19. fault tolerance — on phase 18's graph, assignment and plan, the
+                 launch counts set to 0 just before each run and read
+                 just after: (a) PageRank on 8 ``LocalMesh`` shards, 8
+                 supersteps, ``checkpoint_every=2``, a checkpoint-write
+                 failure at 4, a kill of shard 3 at 5 and a transient
+                 fault at 7, bitwise the uninterrupted run (ranks,
+                 updates, supersteps, globals) with the restart log and
+                 restored supersteps; a checkpointed run without faults
+                 for checkpointing's share of a run; (b) CC under
+                 distributed locking (4,096 pending a shard, 16
+                 supersteps, a kill at 9), labels, counts and ghost
+                 traffic bitwise; (c) ``resume_from=`` (a)'s snapshot at
+                 4 with no ``partition=``, the plan rebuilt from the
+                 stored assignment, bitwise (a); (d) one device: phase
+                 4's PageRank with ``checkpoint_every=4`` and a kill at
+                 13, bitwise phase 4's run; snapshot write ms and bytes,
+                 validate and load ms, the restart's wall time (the
+                 exception to the end of the first superstep after the
+                 restore), peak device memory before and after it;
+20. online serving — CC through ``api.serve`` (locking, 32,768 pending)
+                 on phase 4's edges stored with ``slack=4``: (g) the
+                 slack storage with no mutation runs bitwise the frozen
+                 storage; (e) 8 ``edge_stream`` batches (1,024 edges
+                 each, seed 0) inserted and recomputed incrementally,
+                 the last labels bitwise a from-scratch build's run to
+                 convergence and equal to union-find; (f) a snapshot
+                 pinned before batch 1 reads the same after batch 8; ms
+                 a batch (insert, recompute, publish), dirty rows and
+                 supersteps, a full rebuild's host and device seconds,
+                 the slack's extra slots and bytes; (h) 8 shards on a
+                 2^17-vertex Zipf graph, two rounds, incremental ==
+                 rebuild == union-find;
+21. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3554,7 +3587,7 @@ def phase_distributed(torch, ctx):
 
     # (a) PageRank on phase 4's graph and colors
     t0 = time.perf_counter()
-    g = ctx.pop("pr_graph_host").to(dev)
+    g = ctx["pr_graph_host"].to(dev)     # phase 19 takes it again
     upd = pagerank.make_update(EPS)
     syncs = (pagerank.second_most_popular_sync(),
              pagerank.total_rank_sync())
@@ -3621,6 +3654,7 @@ def phase_distributed(torch, ctx):
         del res
     log("(c) distributed CC: chromatic and locking equal union-find")
     dist_cc_saturating(torch, api, cc, cc_g, plan, counted)
+    ctx["pr_plan"] = plan                # phase 19 runs on it again
     del cc_g, g, upd, syncs, plan
     release(torch, ctx)
 
@@ -3944,6 +3978,451 @@ def nccl_multi(torch, np, n, edges):
         raise AssertionError(f"(g) NCCL world {n} != LocalMesh")
 
 
+# ----------------------------------------------------------------------
+# Phase 19: fault tolerance (repro_torch.ft) on the card
+# ----------------------------------------------------------------------
+
+FT_STEPS = 8                   # (a)'s budget on 8 shards
+FT_EVERY = 2
+FT_FAULTS = (("checkpoint_fail", 4, 0), ("kill", 5, 3), ("transient", 7, 0))
+FT_RESTORED = [2, 4, 6]
+FT_CC_STEPS, FT_CC_EVERY, FT_CC_KILL = 16, 4, 9
+FT_SINGLE_EVERY, FT_SINGLE_KILL = 4, 13
+
+
+class FtProbe:
+    """Times the snapshot layer while a run goes through it: every
+    write, validation and load (ms, one list a kind), the bytes each
+    write left on disk, and each restart's wall time, from the injected
+    exception to the end of the first superstep after the restore, with
+    the peak device memory before the exception and after it."""
+
+    def __init__(self, torch):
+        import repro_torch.ft.snapshot as snap
+        import repro_torch.train.checkpoint as ckpt
+        from repro_torch.core.distributed import DistributedChromaticEngine
+        from repro_torch.core.engine_locking import DistributedLockingEngine
+        from repro_torch.core.exec import ExecutorCore
+        from repro_torch.ft.faults import FaultPlan
+        self.torch = torch
+        self.ms = {k: [] for k in ("write", "validate", "load")}
+        self.bytes, self.restarts = [], []
+        self._raised = None
+        self._undo = []
+        self._wrap(snap, "write_snapshot", "write", self._dir_bytes)
+        self._wrap(snap, "validate_snapshot", "validate")
+        self._wrap(snap, "load_carry", "load")
+        self._wrap(ckpt, "snapshot_engine_state", "write",
+                   lambda args, out: os.path.getsize(args[0]))
+        self._wrap(ckpt, "restore_engine_state", "load")
+        fire = FaultPlan.fire
+
+        def fire_timed(plan, site, **kw):
+            try:
+                return fire(plan, site, **kw)
+            except Exception:
+                torch.cuda.synchronize()
+                self._raised = (time.perf_counter(),
+                                torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                raise
+        self._set(FaultPlan, "fire", fire_timed)
+        for cls in (ExecutorCore, DistributedChromaticEngine,
+                    DistributedLockingEngine):
+            self._step(cls)
+
+    def _set(self, owner, name, fn):
+        self._undo.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, fn)
+
+    def _dir_bytes(self, args, out):
+        return sum(f.stat().st_size for f in Path(out).iterdir())
+
+    def _wrap(self, mod, name, kind, size=None):
+        fn = getattr(mod, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.ms[kind].append(1e3 * (time.perf_counter() - t0))
+            if size is not None:
+                self.bytes.append(size(args, out))
+            return out
+        self._set(mod, name, timed)
+
+    def _step(self, cls):
+        step = cls.__dict__["_superstep"]
+
+        def stepped(eng, state):
+            out = step(eng, state)
+            if self._raised is not None:
+                self.torch.cuda.synchronize()
+                t_raise, peak = self._raised
+                self.restarts.append(dict(
+                    ms=1e3 * (time.perf_counter() - t_raise),
+                    peak_before=peak / 2**30))
+                self._raised = None
+            return out
+        self._set(cls, "_superstep", stepped)
+
+    def close(self, peak_after_gib):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        for r in self.restarts:
+            r["peak_after"] = peak_after_gib
+
+    def report(self, label):
+        fmt = lambda xs: ", ".join(f"{x:.1f}" for x in xs) or "none"
+        log(f"{label}: snapshot writes {fmt(self.ms['write'])} ms, "
+            f"{self.bytes[-1] if self.bytes else 0} bytes on disk each "
+            f"(last); validations {fmt(self.ms['validate'])} ms; loads "
+            f"{fmt(self.ms['load'])} ms; restarts (exception to the end "
+            f"of the first superstep after the restore) "
+            + "; ".join(f"{r['ms']:.1f} ms, peak {r['peak_before']:.2f} "
+                        f"GiB before / {r['peak_after']:.2f} GiB after"
+                        for r in self.restarts))
+
+
+def ft_run(torch, counted, fn):
+    """``counted(fn)`` under an ``FtProbe``: ``(result, wall, counts,
+    probe)``."""
+    probe = FtProbe(torch)
+    try:
+        res, wall, peak, counts = counted(fn)
+    finally:
+        probe.close(torch.cuda.max_memory_allocated() / 2**30)
+    return res, wall, counts, probe
+
+
+def same_result(torch, a, b, key):
+    """Two results bitwise: data, counts, globals, ghost traffic."""
+    from repro_torch.train.checkpoint import flat_items
+    if not torch.equal(a.vertex_data[key], b.vertex_data[key]):
+        return False
+    if (a.superstep, a.n_updates) != (b.superstep, b.n_updates):
+        return False
+    ga, gb = flat_items(a.globals), flat_items(b.globals)
+    if [k for k, _ in ga] != [k for k, _ in gb] or not all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(ga, gb)):
+        return False
+    return all(a.stats.get(k) == b.stats.get(k)
+               for k in ("ghost_rows_sent", "ghost_rows_full"))
+
+
+def phase_ft(torch, ctx):
+    """Kill and resume on the card: (a) PageRank on 8 shards with a
+    checkpoint-write failure, a kill and a transient fault; (b) CC under
+    distributed locking killed at 9; (c) ``resume_from=`` without a
+    partition; (d) one device's PageRank killed at 13."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.apps import cc, pagerank
+    from repro_torch.ft import FaultEvent, FaultPlan
+    dev = ctx["dev"]
+    total = ctx["launches"]
+
+    def counted(fn):
+        out, wall, peak, counts = split_counts(torch, fn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, wall, peak, counts
+
+    g = ctx["pr_graph_host"].to(dev)
+    plan = ctx.pop("pr_plan")
+    upd = pagerank.make_update(EPS)
+    syncs = (pagerank.second_most_popular_sync(),
+             pagerank.total_rank_sync())
+    kw = dict(syncs=syncs, n_shards=N_SHARDS, num_supersteps=FT_STEPS,
+              device=dev)
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        # (a) the uninterrupted run, the checkpointed one, the faulted one
+        base, wall, _, counts = counted(lambda: api.run(
+            g, upd, partition=plan, **kw))
+        step_ms = 1e3 * wall / FT_STEPS
+        log(f"(a) PageRank, M={N_SHARDS}, {FT_STEPS} supersteps "
+            f"uninterrupted: {wall:.3f} s ({step_ms:.2f} ms/superstep), "
+            f"{base.n_updates} updates, launches {counts}")
+        ck, ck_wall, _, probe = ft_run(torch, counted, lambda: api.run(
+            g, upd, partition=plan, **kw, checkpoint_every=FT_EVERY,
+            checkpoint_dir=str(root / "a_ckpt")))
+        probe.report(f"(a) checkpointed every {FT_EVERY}, no faults")
+        log(f"(a) checkpointing at K = {FT_EVERY}: {ck_wall:.3f} s against "
+            f"{wall:.3f} s, {100 * (ck_wall - wall) / ck_wall:.1f} % of "
+            f"the run; bitwise the uninterrupted run: "
+            f"{same_result(torch, ck, base, 'rank')}")
+        if not same_result(torch, ck, base, "rank"):
+            raise AssertionError("(a) a checkpointed run is not bitwise the "
+                                 "uninterrupted run")
+        faults = FaultPlan([FaultEvent(k, s, shard=sh)
+                            for k, s, sh in FT_FAULTS])
+        res, f_wall, f_counts, probe = ft_run(torch, counted, lambda: api.run(
+            g, upd, partition=plan, **kw, checkpoint_every=FT_EVERY,
+            checkpoint_dir=str(root / "a_faults"), faults=faults))
+        probe.report("(a) with faults")
+        got = [(r.error_type, r.restored_superstep) for r in res.restarts]
+        log(f"(a) restart log {got}, fault log {faults.log}; "
+            f"{f_wall:.3f} s, launches {f_counts}; bitwise the "
+            f"uninterrupted run: {same_result(torch, res, base, 'rank')}")
+        if [e for e, _ in got] != ["CheckpointWriteFault", "InjectedKill",
+                                   "TransientFault"] \
+                or [s for _, s in got] != FT_RESTORED:
+            raise AssertionError(f"(a) restart log {got}")
+        if not same_result(torch, res, base, "rank") \
+                or f_counts["ell_spmv"] <= 0:
+            raise AssertionError("(a) the faulted run is not bitwise the "
+                                 "uninterrupted run")
+        del res, ck
+
+        # (b) CC under distributed locking, killed at 9
+        cc_g = dataclasses.replace(g, vertex_data={
+            "label": torch.arange(FULL_N, dtype=torch.int32, device=dev)},
+            edge_data={})
+        ckw = dict(scheduler="locking", max_pending=DIST_CC_WINDOW,
+                   n_shards=N_SHARDS, partition=plan,
+                   num_supersteps=FT_CC_STEPS, device=dev)
+        cbase, c_wall, _, _ = counted(lambda: api.run(
+            cc_g, cc.make_update(), **ckw))
+        cres, _, _, probe = ft_run(torch, counted, lambda: api.run(
+            cc_g, cc.make_update(), **ckw, checkpoint_every=FT_CC_EVERY,
+            checkpoint_dir=str(root / "b"),
+            faults=FaultPlan([FaultEvent("kill", FT_CC_KILL)])))
+        probe.report("(b) CC locking")
+        ok = same_result(torch, cres, cbase, "label")
+        log(f"(b) CC locking, {DIST_CC_WINDOW} pending a shard, "
+            f"{FT_CC_STEPS} supersteps ({1e3 * c_wall / FT_CC_STEPS:.2f} "
+            f"ms/superstep), kill at {FT_CC_KILL}: restart log "
+            f"{[(r.error_type, r.restored_superstep) for r in cres.restarts]}"
+            f", ghost rows {cres.stats['ghost_rows_sent']} of "
+            f"{cres.stats['ghost_rows_full']} (uninterrupted "
+            f"{cbase.stats['ghost_rows_sent']} of "
+            f"{cbase.stats['ghost_rows_full']}); bitwise: {ok}")
+        if not ok or [r.restored_superstep for r in cres.restarts] != [8]:
+            raise AssertionError("(b) CC locking: not bitwise the "
+                                 "uninterrupted run")
+        del cres, cbase, cc_g
+
+        # (c) resume_from (a)'s snapshot at 4: the plan is rebuilt from
+        # the assignment the snapshot stores
+        snap4 = root / "a_faults" / "step_00000004"
+        rres, r_wall, _, probe = ft_run(torch, counted, lambda: api.run(
+            g, upd, **kw, resume_from=str(snap4)))
+        probe.report("(c) resume_from")
+        ok = same_result(torch, rres, base, "rank")
+        log(f"(c) resume_from step 4 without partition=: {r_wall:.3f} s "
+            f"(ShardPlan.build from the stored assignment included), "
+            f"{rres.superstep} supersteps; bitwise (a): {ok}")
+        if not ok:
+            raise AssertionError("(c) resume_from is not bitwise (a)")
+        del rres, base
+    del plan
+    release(torch, ctx)
+
+    # (d) one device: phase 4's PageRank, killed at 13
+    with tempfile.TemporaryDirectory() as root:
+        res, wall, counts, probe = ft_run(torch, counted, lambda: api.run(
+            g, upd, syncs=syncs, device=dev,
+            checkpoint_every=FT_SINGLE_EVERY, checkpoint_dir=root,
+            faults=FaultPlan([FaultEvent("kill", FT_SINGLE_KILL)])))
+    probe.report("(d) one device")
+    single = ctx["pr_single"]
+    diff = int((res.vertex_data["rank"].cpu() != single["data"]).sum())
+    log(f"(d) one device, checkpoint every {FT_SINGLE_EVERY}, kill at "
+        f"{FT_SINGLE_KILL}: {res.superstep} supersteps, {res.n_updates} "
+        f"updates, {wall:.3f} s, launches {counts}, restart log "
+        f"{[(r.error_type, r.restored_superstep) for r in res.restarts]}; "
+        f"phase 4: {single['superstep']} / {single['n_updates']}; {diff} "
+        "ranks differ")
+    if diff or (res.superstep, res.n_updates) != (single["superstep"],
+                                                  single["n_updates"]):
+        raise AssertionError("(d) the killed run is not bitwise phase 4's")
+    if [r.restored_superstep for r in res.restarts] != [12]:
+        raise AssertionError("(d) restored from the wrong snapshot")
+    del res, g
+    release(torch, ctx)
+
+
+# ----------------------------------------------------------------------
+# Phase 20: online graph serving (repro_torch.serve.graph_engine)
+# ----------------------------------------------------------------------
+
+SERVE_SLACK = 4
+SERVE_BATCHES, SERVE_RATE = 8, 1024
+SHARDED_SERVE_N = 2 ** 17      # (h): the plan is built again each round
+SHARDED_SERVE_ROUNDS = 2
+
+
+def timed_sync(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fresh_edges(np, serving, batch):
+    return np.asarray([e for e in batch.edges.tolist()
+                       if serving.find_edge(*e) is None],
+                      np.int64).reshape(-1, 2)
+
+
+def phase_serving(torch, ctx):
+    """CC served on phase 4's edges with slack 4: (g) slack == frozen,
+    (e) 8 edge_stream batches incremental == rebuild == union-find, (f)
+    a pinned snapshot, (h) the sharded arm on 2^17 vertices."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.apps import cc
+    from repro_torch.data.pipeline import edge_stream
+    dev, edges = ctx["dev"], ctx["zipf_edges"]
+    colors = ctx["zipf_colors"]
+
+    # (g) the slack storage, unmutated, runs bitwise the frozen storage
+    (g, upd, _), build_s = timed_sync(torch, lambda: cc.build(
+        edges, FULL_N, colors=colors, slack=SERVE_SLACK, device=dev))
+    frozen = ctx["pr_graph_host"].to(dev)
+    frozen = dataclasses.replace(frozen, vertex_data={
+        "label": torch.arange(FULL_N, dtype=torch.int32, device=dev)},
+        edge_data={})
+    runs = {}
+    for label, graph in (("frozen", frozen), ("slack", g)):
+        runs[label], wall = timed_sync(torch, lambda: api.run(
+            graph, upd, scheduler="chromatic", device=dev))
+        log(f"(g) CC chromatic on the {label} storage: "
+            f"{runs[label].superstep} supersteps, {runs[label].n_updates} "
+            f"updates, {wall:.3f} s")
+    extra = g.ell.padded_slots - frozen.ell.padded_slots
+    log(f"(g) slack storage built in {build_s:.1f} s: "
+        f"{g.ell.padded_slots} slots against {frozen.ell.padded_slots} "
+        f"({extra} more, {extra * 10} bytes of nbrs, mask, edge ids and "
+        f"is_src), widths {g.ell.widths}, edge capacity {g.edge_capacity} "
+        f"for {g.n_edges} edges (CC has no edge data)")
+    if not same_result(torch, runs["slack"], runs["frozen"], "label"):
+        raise AssertionError("(g) the slack storage is not bitwise the "
+                             "frozen storage")
+    truth = ctx["cc_truth"]
+    del runs, frozen
+    release(torch, ctx)
+
+    # (e), (f) the served run
+    serving = api.serve(g, upd, scheduler="locking", max_pending=WINDOW,
+                        max_supersteps=DIST_CC_SUPERSTEPS, device=dev)
+    r, wall = timed_sync(torch, serving.recompute)
+    log(f"(e) initial converge (every vertex dirty): {r['supersteps']} "
+        f"supersteps, {r['updates']} updates, {wall:.3f} s")
+    if not np.array_equal(serving.graph.vertex_data["label"].cpu().numpy(),
+                          truth):
+        raise AssertionError("(e) the initial converge is not union-find")
+    pinned = serving.snapshot()
+    before = pinned.vertex_data["label"].clone()
+    publish, publish_s = serving._publish, []
+
+    def publish_timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        publish(**kw)
+        torch.cuda.synchronize()
+        publish_s.append(time.perf_counter() - t0)
+    serving._publish = publish_timed
+    added = []
+
+    def replay():
+        for batch in edge_stream(FULL_N, rate=SERVE_RATE, seed=0,
+                                 n_batches=SERVE_BATCHES):
+            new = fresh_edges(np, serving, batch)
+            n_comp = serving.stats["compactions"]
+            _, ins_s = timed_sync(torch, lambda: serving.add_edges(new))
+            added.extend(new.tolist())
+            n_pub = len(publish_s)
+            r, rec_s = timed_sync(torch, serving.recompute)
+            pub_s = sum(publish_s[n_pub:])
+            how = ("a compaction rebuild: a row's slack ran out"
+                   if serving.stats["compactions"] > n_comp
+                   else "slack slots")
+            log(f"(e) batch {batch.t}: {len(new)} edges inserted in "
+                f"{1e3 * ins_s:.1f} ms ({how}); recompute "
+                f"{1e3 * (rec_s - pub_s):.1f} ms ({r['dirty']} dirty rows, "
+                f"{r['supersteps']} supersteps, {r['updates']} updates); "
+                f"publish {1e3 * pub_s:.3f} ms")
+    _, wall, _, counts = split_counts(torch, replay)
+    log(f"(e) {SERVE_BATCHES} batches in {wall:.3f} s, launches {counts} "
+        "(CC's update has no aggregator: no kernel is on its path)")
+    log(f"(e) serving stats {serving.stats}; _publish keeps the tensors it "
+        "is handed (no clone, 0 bytes copied): every mutation writes new "
+        "tensors")
+    ok_pin = torch.equal(pinned.vertex_data["label"], before)
+    log(f"(f) the snapshot pinned before batch 0 reads the same after "
+        f"batch {SERVE_BATCHES - 1}: {ok_pin} (round {pinned.round}, "
+        f"{pinned.n_edges} edges; now {serving.snapshot().n_edges})")
+    if not ok_pin:
+        raise AssertionError("(f) a pinned snapshot changed")
+    inc = serving.graph.vertex_data["label"]
+    all_edges = np.vstack([edges, np.asarray(added, np.int64)])
+    del serving, pinned, before, g
+    release(torch, ctx)
+    (g2, u2, _), host_s = timed_sync(torch, lambda: cc.build(
+        all_edges, FULL_N, device=dev))
+    rb, dev_s = timed_sync(torch, lambda: api.run(
+        g2, u2, scheduler="chromatic", device=dev))
+    want = cc.reference_components(all_edges, FULL_N)
+    ok = (torch.equal(inc, rb.vertex_data["label"])
+          and np.array_equal(inc.cpu().numpy(), want))
+    log(f"(e) a full rebuild of {len(all_edges)} edges: build (host, with "
+        f"greedy coloring) {host_s:.2f} s, run to convergence on the card "
+        f"{dev_s:.3f} s ({rb.superstep} supersteps); incremental == "
+        f"rebuild == union-find: {ok}")
+    if not ok:
+        raise AssertionError("(e) incremental labels differ from the "
+                             "rebuild's")
+    del g2, rb, inc
+    release(torch, ctx)
+    serving_sharded(torch, np, api, cc, edge_stream, dev)
+
+
+def serving_sharded(torch, np, api, cc, edge_stream, dev):
+    """(h) 8 LocalMesh shards on a 2^17-vertex Zipf graph: two rounds of
+    1,024 edges, each recomputed incrementally (the plan built again),
+    equal to a rebuild and to union-find."""
+    from repro_torch.core.graph import zipf_edges
+    from repro_torch.core.partition import two_phase_partition
+    n = SHARDED_SERVE_N
+    edges = zipf_edges(n, alpha=2.0, max_deg=256, seed=1)
+    g, upd, _ = cc.build(edges, n, slack=SERVE_SLACK, device=dev)
+    asg = two_phase_partition(n, edges, N_SHARDS, seed=0)
+    serving = api.serve(g, upd, scheduler="chromatic", n_shards=N_SHARDS,
+                        partition=asg, device=dev)
+    r, wall = timed_sync(torch, serving.recompute)
+    log(f"(h) {n} vertices, {len(edges)} edges on {N_SHARDS} shards: "
+        f"initial converge {r['supersteps']} supersteps, {wall:.3f} s")
+    added = []
+    for batch in edge_stream(n, rate=SERVE_RATE, seed=1,
+                             n_batches=SHARDED_SERVE_ROUNDS):
+        new = fresh_edges(np, serving, batch)
+        serving.add_edges(new)
+        added.extend(new.tolist())
+        r, wall = timed_sync(torch, serving.recompute)
+        log(f"(h) round {batch.t}: {len(new)} edges, {r['dirty']} dirty "
+            f"rows, {r['supersteps']} supersteps, {wall:.3f} s (the plan "
+            "built again included)")
+    all_edges = np.vstack([edges, np.asarray(added, np.int64)])
+    g2, u2, _ = cc.build(all_edges, n, device=dev)
+    rb = api.run(g2, u2, scheduler="chromatic", n_shards=N_SHARDS,
+                 partition=two_phase_partition(n, all_edges, N_SHARDS,
+                                               seed=0), device=dev)
+    inc = serving.graph.vertex_data["label"]
+    ok = (torch.equal(inc, rb.vertex_data["label"])
+          and np.array_equal(inc.cpu().numpy(),
+                             cc.reference_components(all_edges, n)))
+    log(f"(h) incremental == rebuild == union-find: {ok}")
+    if not ok:
+        raise AssertionError("(h) sharded serving differs from the rebuild")
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -4027,7 +4506,9 @@ def main() -> int:
                      ("phase 16 split and apps main path",
                       phase_split_main),
                      ("phase 17 facade and cost model", phase_facade),
-                     ("phase 18 distributed", phase_distributed)):
+                     ("phase 18 distributed", phase_distributed),
+                     ("phase 19 fault tolerance", phase_ft),
+                     ("phase 20 online serving", phase_serving)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:

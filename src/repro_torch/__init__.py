@@ -13,7 +13,8 @@ serving (``kernels/csrc/window_attention.cu``).
 Entry points (``api.run``, ``DataGraph.from_edges``, ``pagerank.build``,
 ``als.synthetic_netflix``, ``models.model.init_params``,
 ``serve.engine.init_cache``, ``interop.params_from_arrays``,
-``launch.serve``) put tensors on ``cuda`` unless the caller passes
+``launch.serve``, ``api.serve``, ``launch.graph_serve``) put tensors on
+``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit device they raise instead
 of running on the CPU.
 """

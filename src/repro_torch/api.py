@@ -30,15 +30,22 @@ configuration):
   ``LocalMesh``, the default, on the run's device, or a
   ``ProcessGroupMesh``).
 
+* ``checkpoint_every=`` / ``checkpoint_dir=`` / ``resume_from=`` /
+  ``faults=`` / ``max_restarts=`` run under ``repro_torch.ft``:
+  snapshots at superstep boundaries, injected faults, supervised
+  restarts (``RunResult.restarts``).
+* ``serve(...)`` stands up a long-lived ``repro_torch.serve.graph_engine
+  .ServingEngine``: live mutations on slack storage, incremental
+  recompute of the dirty scopes, snapshot-isolated reads.
+
 The port adds ``device=`` (default: the GPU, see ``resolve_device``; the
 graph is moved there if it lives elsewhere) and keeps ``use_kernel=``
-as a keyword.  Fault tolerance and online serving are not ported yet:
-their keywords raise ``ValueError`` naming the ROADMAP item they wait
-for (A10, A11).
+as a keyword.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Sequence
 
@@ -54,8 +61,8 @@ from repro_torch.core.sync import SyncOp, tree_map
 from repro_torch.core.update import Consistency, UpdateFn
 from repro_torch.device import resolve_device
 
-__all__ = ["RunResult", "EngineSpec", "run", "build_engine",
-           "list_schedulers", "describe_schedulers"]
+__all__ = ["RunResult", "EngineSpec", "run", "serve", "build_engine",
+           "list_schedulers", "describe_schedulers", "SERVE_ONLY_KWARGS"]
 
 PyTree = Any
 
@@ -76,8 +83,11 @@ class RunResult:
     when ``profile=True`` (save it, or fit a cost model with
     ``repro_torch.profile.fit_cost_model``).  ``stats`` carries
     strategy-specific extras (a distributed run's local shard data, and
-    the locking engine's ghost traffic); ``restarts`` the supervised
-    run's restart log, which waits for ROADMAP A10.
+    the locking engine's ghost traffic).  ``restarts`` is the supervised
+    run's restart log (a list of ``repro_torch.ft.RestartRecord``) when
+    ``checkpoint_every=`` / ``resume_from=`` / ``faults=`` engaged fault
+    tolerance, ``None`` otherwise; an empty list means supervision was
+    on and nothing failed.
     """
     vertex_data: PyTree
     edge_data: PyTree | None
@@ -293,14 +303,91 @@ def _resolve_cost_model_option(cost_model, device: torch.device):
     return resolve_cost_model(cost_model, device.type)
 
 
-# options of the reference's run that the port does not take yet, and
-# the ROADMAP item each waits for
-_NOT_PORTED = {
-    "checkpoint_every": "A10",
-    "checkpoint_dir": "A10", "resume_from": "A10", "faults": "A10",
-    "max_restarts": "A10", "slack": "A11", "edge_capacity": "A11",
-    "publish_every": "A11",
-}
+# keywords that only mean something on the online-serving path: they
+# configure mutable storage and snapshot publication, not a batch run
+SERVE_ONLY_KWARGS = frozenset({"slack", "edge_capacity", "publish_every"})
+
+
+def serve(graph, update: UpdateFn, *, scheduler: str = "locking",
+          consistency=None, syncs: Sequence[SyncOp] = (),
+          n_shards: int = 1, dispatch: str | None = "auto",
+          max_pending: int | None = None,
+          max_supersteps: int | None = None, partition=None,
+          cost_model=None, slack: int | None = None,
+          edge_capacity: int | None = None,
+          publish_every: int | None = None, device=None, **options):
+    """Stand up a long-lived online serving engine (DESIGN.md §13).
+
+    Returns a ``repro_torch.serve.graph_engine.ServingEngine``: a
+    mutate / recompute / query loop over the named scheduler.
+    ``add_edge`` / ``update_vertex_data`` / ``update_edge_data`` land
+    mutations on slack storage, ``recompute()`` re-converges exactly the
+    dirty scopes, and queries (``read_vertex`` / ``read_edge`` /
+    ``top_k`` / ``snapshot()``) read snapshot-isolated published views.
+
+    ``slack=`` reserves per-row insert headroom (default 4 slots when
+    the graph was built without slack; a slack-built graph is used as
+    it is); ``edge_capacity=`` caps the reserved edge rows;
+    ``publish_every=`` also publishes mid-recompute snapshots every K
+    supersteps of a long convergence.  The scheduler's configuration is
+    validated here, as ``run`` validates it.  ``device=`` as in ``run``.
+    """
+    device = resolve_device(device)
+    if max_pending is not None:
+        options["max_pending"] = max_pending
+    if cost_model is not None:
+        options["cost_model"] = _resolve_cost_model_option(cost_model,
+                                                           device)
+    spec = EngineSpec(scheduler=scheduler, n_shards=n_shards,
+                      consistency=consistency, dispatch=dispatch,
+                      max_supersteps=max_supersteps, options=options)
+    entry = spec.entry
+    if not spec.distributed(partition) and not entry.stepping:
+        raise ValueError(
+            f"scheduler {scheduler!r} cannot serve: serving steps the "
+            "engine between mutation batches, which needs a stepping "
+            f"ExecutorCore strategy; stepping schedulers: "
+            f"{[n for n in list_schedulers() if get_scheduler(n).stepping]}")
+    # surface bad knobs at serve() time, not at the first recompute
+    spec._factory_kwargs(get_distributed(scheduler)
+                         if spec.distributed(partition) else entry)
+    spec._resolve_update(update)
+    spec._check_colors(entry, graph)
+    if slack is not None and (isinstance(slack, bool)
+                              or not isinstance(slack, int) or slack < 1):
+        raise ValueError(f"slack must be a positive int, got {slack!r}")
+    if graph.device != device:
+        graph = graph.to(device)
+    if graph.slack == 0 or (slack is not None and slack != graph.slack):
+        from repro_torch.core.graph import rebuild_compacted
+        colors = graph.colors
+        graph = rebuild_compacted(graph, slack=slack if slack else 4,
+                                  edge_capacity=edge_capacity)
+        if colors is not None:
+            # vertex ids are stable across the rebuild, so the caller's
+            # coloring stays proper
+            graph = graph.with_colors(colors.cpu().numpy())
+    from repro_torch.serve.graph_engine import ServingEngine
+    return ServingEngine(graph, spec._resolve_update(update), syncs,
+                         spec=spec, partition=partition,
+                         publish_every=publish_every)
+
+
+def _check_ft_options(checkpoint_every, checkpoint_dir, max_restarts):
+    if (checkpoint_every is None) != (checkpoint_dir is None):
+        raise ValueError(
+            "checkpoint_every= and checkpoint_dir= go together: the "
+            "interval says when to snapshot, the directory says where")
+    if checkpoint_every is not None and (
+            isinstance(checkpoint_every, bool)
+            or not isinstance(checkpoint_every, int)
+            or checkpoint_every < 1):
+        raise ValueError(f"checkpoint_every must be a positive int, "
+                         f"got {checkpoint_every!r}")
+    if isinstance(max_restarts, bool) or not isinstance(max_restarts, int) \
+            or max_restarts < 0:
+        raise ValueError(f"max_restarts must be a non-negative int, "
+                         f"got {max_restarts!r}")
 
 
 def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
@@ -311,7 +398,10 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
         num_supersteps: int | None = None, active=None, priority=None,
         trace=None, partition=None, profile: bool = False,
         cost_model=None, use_kernel: bool | None = None, device=None,
-        **options) -> RunResult:
+        checkpoint_every: int | None = None,
+        checkpoint_dir: str | None = None,
+        resume_from: str | None = None, faults=None,
+        max_restarts: int = 3, **options) -> RunResult:
     """Run ``update`` over ``graph`` under the named scheduler.
 
     Termination is the earliest of the task set draining,
@@ -338,25 +428,50 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
     a ``COSTMODEL_*.json`` path, or a plugin entry-point name) to
     ``dispatch="auto"``; it changes launch shapes only, never results.
 
+    Fault tolerance (DESIGN.md §12): ``checkpoint_every=K`` with
+    ``checkpoint_dir=`` snapshots the run at every K-th superstep
+    boundary (sharded atomic snapshots for distributed runs,
+    ``snapshot_engine_state`` files for one device); ``resume_from=``
+    continues bitwise from a snapshot (a directory is a sharded one and
+    resumes on the distributed path, its plan rebuilt from the stored
+    assignment unless ``partition=`` is given); ``faults=`` takes a
+    ``repro_torch.ft.FaultPlan`` of injected failures.  Any of the three
+    engages the supervised restart loop (``max_restarts``, exponential
+    backoff, restore from the latest valid snapshot) and fills
+    ``RunResult.restarts``.
+
     ``consistency=`` overrides the update's declared scope model.
     ``use_kernel=False`` runs the aggregator's dense arm (bitwise equal
     to the kernel arm).  Per-strategy extras (``k_select=``, ``fifo=``,
     ``max_pending=``, ``snapshot_phases=``, ...) pass through
     ``**options`` and are validated against the registry entry.
     """
-    waiting = sorted(k for k in options if k in _NOT_PORTED)
-    if waiting:
+    serveish = SERVE_ONLY_KWARGS & set(options)
+    if serveish:
         raise ValueError(
-            f"{waiting} are not ported to repro_torch yet (ROADMAP "
-            f"{', '.join(sorted({_NOT_PORTED[k] for k in waiting}))})")
+            f"{sorted(serveish)} are online-serving options: api.run "
+            "executes one batch run over a frozen graph — use "
+            "api.serve(graph, update, ...) for live mutations, "
+            "incremental recompute, and query traffic (DESIGN.md §13)")
     if use_kernel is not None:
         options["use_kernel"] = use_kernel
     if trace is False:
         trace = None          # "tracing off", not a trace callable
+    _check_ft_options(checkpoint_every, checkpoint_dir, max_restarts)
+    ft_active = (checkpoint_every is not None or resume_from is not None
+                 or faults is not None)
+    if ft_active and (trace is not None or profile):
+        raise ValueError(
+            "trace=/profile= cannot be combined with checkpointing / "
+            "fault injection (checkpoint_every=, resume_from=, faults=)")
     device = resolve_device(device)
+    # a directory resume_from is a sharded snapshot (one device's
+    # snapshots are single .npz files): resume it on the distributed
+    # path even at n_shards=1, the stored assignment rebuilding the plan
+    dist_resume = resume_from is not None and os.path.isdir(resume_from)
     distributed = EngineSpec(scheduler=scheduler,
                              n_shards=n_shards).distributed(partition)
-    if distributed:
+    if distributed or dist_resume:
         if until is not None or trace is not None or profile:
             raise ValueError(
                 "until=/trace=/profile= step the engine from the host "
@@ -366,25 +481,57 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
         if priority is not None:
             raise ValueError("priority= initialization is single-device "
                              "only (shards derive priority from active)")
+        if resume_from is not None:
+            from repro_torch.core.mesh import ProcessGroupMesh
+            from repro_torch.ft.snapshot import read_assignment
+            mesh = options.get("mesh")
+            stored, manifest = read_assignment(
+                resume_from, shards=(mesh.shards if isinstance(
+                    mesh, ProcessGroupMesh) else None))
+            if manifest["scheduler"] != scheduler:
+                raise ValueError(
+                    f"resume_from snapshot was taken by scheduler "
+                    f"{manifest['scheduler']!r}, this run asked for "
+                    f"{scheduler!r}")
+            if manifest["n_shards"] != n_shards:
+                raise ValueError(
+                    f"resume_from snapshot has {manifest['n_shards']} "
+                    f"shards, this run asked for n_shards={n_shards}")
+            if partition is None:
+                partition = stored   # rebuild the same ShardPlan
     engine = build_engine(
         graph, update, scheduler=scheduler, consistency=consistency,
         syncs=syncs, n_shards=n_shards, dispatch=dispatch,
         max_pending=max_pending, max_supersteps=max_supersteps,
         partition=partition, cost_model=cost_model, device=device,
         **options)
-    if distributed:
-        out = engine.run(active=active, num_supersteps=num_supersteps)
+    if distributed or dist_resume:
+        restarts = None
+        if ft_active:
+            from repro_torch.ft import runner as ft_runner
+            out, restarts = ft_runner.run_distributed(
+                engine, scheduler=scheduler, active=active,
+                num_supersteps=num_supersteps,
+                checkpoint_every=checkpoint_every,
+                checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+                faults=faults, max_restarts=max_restarts)
+        else:
+            out = engine.run(active=active, num_supersteps=num_supersteps)
         main = ("vertex_data", "globals", "supersteps", "n_updates",
                 "active_any")
         return RunResult(
             vertex_data=out["vertex_data"], edge_data=None,
             globals=out["globals"], superstep=out["supersteps"],
             n_updates=out["n_updates"], active_any=out["active_any"],
-            engine=engine,
+            engine=engine, restarts=restarts,
             stats={k: v for k, v in out.items() if k not in main})
     entry = get_scheduler(scheduler)
 
     if not entry.stepping:
+        if ft_active:
+            raise ValueError(
+                "checkpoint_every=/resume_from=/faults= need a stepping "
+                "engine; the sequential oracle supports none of them")
         if trace is not None or profile:
             raise ValueError("trace=/profile= need a stepping engine; "
                              "the sequential oracle supports neither")
@@ -399,6 +546,18 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
                          n_updates=n_updates,
                          active_any=bool(np.asarray(act).any()),
                          engine=engine)
+
+    if ft_active:
+        from repro_torch.ft import runner as ft_runner
+        state, restarts = ft_runner.run_single(
+            engine, active=active, priority=priority, until=until,
+            num_supersteps=num_supersteps,
+            checkpoint_every=checkpoint_every,
+            checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+            faults=faults, max_restarts=max_restarts)
+        result = _result_from_state(state, engine, None)
+        result.restarts = restarts
+        return result
 
     if until is None and trace is None and not profile:
         state = engine.run(active=active, priority=priority,

@@ -130,16 +130,16 @@ def _rating_pairs(rng, n_users: int, n_movies: int, density: float,
 
 def synthetic_netflix(n_users: int, n_movies: int, d: int, density: float,
                       noise: float = 0.1, seed: int = 0,
-                      d_model: int | None = None,
+                      d_model: int | None = None, slack: int = 0,
                       device=None) -> ALSProblem:
     """Low-rank ground-truth ratings r = <u, v> + noise.
 
     The same ``default_rng(seed)`` stream as the reference's
     ``synthetic_netflix``, so the problem is array for array the
-    reference's (the reference's ``slack=``, mutable storage, is ROADMAP
-    A11).  ``d_model`` is the factor dimension used by the solver
-    (defaults to the generative d).  The graph's tensors go to
-    ``device`` (default: the GPU).
+    reference's.  ``d_model`` is the factor dimension used by the solver
+    (defaults to the generative d); ``slack=`` reserves mutable storage
+    for new ratings arriving through ``api.serve``.  The graph's tensors
+    go to ``device`` (default: the GPU).
     """
     rng = np.random.default_rng(seed)
     d_model = d_model or d
@@ -163,6 +163,7 @@ def synthetic_netflix(n_users: int, n_movies: int, d: int, density: float,
             "is_movie": is_movie,
         },
         edge_data={"rating": ratings},
+        slack=slack,
         device=device,
     )
     g = g.with_colors(bipartite_coloring(n_users, nv))

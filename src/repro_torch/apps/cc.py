@@ -37,15 +37,18 @@ def make_update() -> UpdateFn:
 
 def make_graph(edges: np.ndarray, n_vertices: int, *,
                labels: np.ndarray | None = None, max_deg: int | None = None,
-               colors: np.ndarray | None = None, device=None) -> DataGraph:
+               colors: np.ndarray | None = None, slack: int = 0,
+               edge_capacity: int | None = None, device=None) -> DataGraph:
     """The CC data graph, greedily colored (or with ``colors``, e.g. a
-    coloring of the same edges computed before)."""
+    coloring of the same edges computed before); ``slack=`` /
+    ``edge_capacity=`` reserve mutable storage for ``api.serve``."""
     if labels is None:
         labels = np.arange(n_vertices, dtype=np.int32)
     g = DataGraph.from_edges(
         n_vertices, edges,
         vertex_data={"label": np.asarray(labels, np.int32)},
-        max_deg=max_deg, device=device)
+        max_deg=max_deg, slack=slack, edge_capacity=edge_capacity,
+        device=device)
     if colors is None:
         colors = greedy_coloring(n_vertices, edges)
     return g.with_colors(colors)
@@ -53,11 +56,13 @@ def make_graph(edges: np.ndarray, n_vertices: int, *,
 
 def build(edges: np.ndarray, n_vertices: int, *,
           labels: np.ndarray | None = None, max_deg: int | None = None,
-          colors: np.ndarray | None = None, device=None):
+          colors: np.ndarray | None = None, slack: int = 0,
+          edge_capacity: int | None = None, device=None):
     """Uniform facade triple ``(graph, update, syncs)``; no syncs —
     termination is the task set draining at the fixed point."""
     graph = make_graph(edges, n_vertices, labels=labels, max_deg=max_deg,
-                       colors=colors, device=device)
+                       colors=colors, slack=slack,
+                       edge_capacity=edge_capacity, device=device)
     return graph, make_update(), ()
 
 

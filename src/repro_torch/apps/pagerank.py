@@ -61,13 +61,17 @@ def edge_weights(edges: np.ndarray, n_vertices: int) -> np.ndarray:
 
 def make_graph(edges: np.ndarray, n_vertices: int, *,
                hub_split: bool = False, w_cap: int | None = None,
-               colors: np.ndarray | None = None,
+               colors: np.ndarray | None = None, slack: int = 0,
+               edge_capacity: int | None = None,
                device=None) -> DataGraph:
     """A colored PageRank data graph with symmetric normalized weights.
     ``hub_split=True`` (or an explicit ``w_cap=``) stores rows wider than
     ``w_cap`` as virtual rows (``DataGraph.from_edges``).  The colors
     are greedy (the reference's) unless ``colors`` gives a coloring the
-    caller already has."""
+    caller already has.  ``slack=`` / ``edge_capacity=`` reserve mutable
+    storage for online serving (``api.serve``); the weights of edges at
+    a mutated vertex depend on its degree: recompute them with
+    ``refreshed_weights`` after inserts."""
     g = DataGraph.from_edges(
         n_vertices, edges,
         vertex_data={"rank": np.ones(n_vertices, np.float32)},
@@ -75,22 +79,48 @@ def make_graph(edges: np.ndarray, n_vertices: int, *,
         edge_locality=False,
         hub_split=hub_split,
         w_cap=w_cap,
+        slack=slack,
+        edge_capacity=edge_capacity,
         device=device,
     )
     return g.with_colors(greedy_coloring(n_vertices, edges)
                          if colors is None else colors)
 
 
+def refreshed_weights(serving, vertices):
+    """Recomputed ``1/sqrt(deg_u * deg_v)`` for every edge at
+    ``vertices``: the app's half of a live insert.  An edge arrival
+    changes its endpoints' degrees, which this app's weights depend on,
+    so the weights at them are pushed back through
+    ``ServingEngine.update_edge_data`` (whose dirty tracking then seeds
+    the scopes).  Returns ``(edge_input_ids, {"w": values})``, the
+    reference's float64 arithmetic rounded once to float32."""
+    deg = serving.degrees()
+    eids, ws = [], []
+    seen: set[int] = set()
+    for v in vertices:
+        nbrs, edge_ids = serving.neighbors(v)
+        for nbr, eid in zip(nbrs.tolist(), edge_ids.tolist()):
+            if eid not in seen:
+                seen.add(eid)
+                eids.append(eid)
+                ws.append(1.0 / np.sqrt(deg[v] * deg[nbr]))
+    return (np.asarray(eids, np.int64),
+            {"w": np.asarray(ws, np.float32)})
+
+
 def build(edges: np.ndarray, n_vertices: int, *, eps: float = 1e-4,
           tau: int = 1, hub_split: bool = False, w_cap: int | None = None,
-          colors: np.ndarray | None = None, device=None):
+          colors: np.ndarray | None = None, slack: int = 0,
+          edge_capacity: int | None = None, device=None):
     """Uniform facade triple ``(graph, update, syncs)`` for
     ``repro_torch.api.run``; the syncs are the paper's §3.3 examples
     (second most popular page + total rank), refreshed every ``tau``
-    supersteps.  ``hub_split``, ``w_cap`` and ``colors`` as in
-    ``make_graph``."""
+    supersteps.  ``hub_split``, ``w_cap``, ``colors``, ``slack`` and
+    ``edge_capacity`` as in ``make_graph``."""
     graph = make_graph(edges, n_vertices, hub_split=hub_split, w_cap=w_cap,
-                       colors=colors, device=device)
+                       colors=colors, slack=slack,
+                       edge_capacity=edge_capacity, device=device)
     syncs = (second_most_popular_sync(tau), total_rank_sync(tau))
     return graph, make_update(eps), syncs
 

@@ -671,11 +671,20 @@ class _CarryEngine:
         return active_total(self.mesh, carry["active"],
                             [s.owned for s in self._sa]) > 0
 
+    # set by repro_torch.ft.runner while a FaultPlan is active
+    fault_hook = None
+
     def step_chunk(self, carry: dict, stop_at: int,
                    ignore_active: bool = False) -> dict:
         """Advance ``carry`` to superstep ``stop_at``, or until the task
         set drains (unless ``ignore_active``).  A chunked run is bitwise
-        the whole ``run``: the same supersteps, cut elsewhere."""
+        the whole ``run``: the same supersteps, cut elsewhere.
+
+        ``fault_hook`` (``None`` unless ``repro_torch.ft.runner`` set
+        one) fires once on the host at the chunk's first boundary,
+        before any superstep runs; the supersteps never consult it."""
+        if self.fault_hook is not None:
+            self.fault_hook("superstep", superstep=int(carry["superstep"]))
         while carry["superstep"] < stop_at and (
                 ignore_active or self.carry_active_any(carry)):
             carry = self._superstep(carry)

@@ -31,7 +31,9 @@ The port of ``repro.core.exec``:
   implements the scheduling strategy: ``prepare`` once a superstep,
   ``select`` for each phase, and optionally ``nbr_stamp``;
   ``profile_probe`` reports the launch shape of a state's first phase
-  for ``api.run(profile=True)``.
+  for ``api.run(profile=True)``; ``step_on`` / ``probe_on`` step and
+  probe against a mutated graph (the serving path), and
+  ``dirty_scope_mask`` turns mutated vertices into its task set.
 
 On a hub-split graph both dispatch shapes run stage 1 over virtual rows
 (``[Nv_b, W_b]`` bucket blocks, or ``[B*s, w_cap]`` chunk pseudo-rows of
@@ -69,6 +71,14 @@ class EngineState:
     globals: dict               # sync results, keyed by SyncOp.key
     superstep: int
     n_updates: torch.Tensor     # 0-d int64 on the device: no sync per phase
+
+
+def engine_state_field_names() -> tuple[str, ...]:
+    """The EngineState field set, in declaration order.  Snapshots
+    (``train.checkpoint``, ``repro_torch.ft``) record it, so a restore
+    against a build whose EngineState gained or lost a field fails by
+    name instead of resuming with a defaulted field."""
+    return tuple(f.name for f in dataclasses.fields(EngineState))
 
 
 def _task_tensor(x, n_vertices: int, device, dtype, name: str):
@@ -165,6 +175,25 @@ def consume_and_reschedule(active, priority, ids, sel, nbr_ids, nbr_mask,
         priority.scatter_reduce_(0, ids[again].long(),
                                  res.priority[again].to(priority.dtype), "amax")
     return active, priority
+
+
+def dirty_scope_mask(graph: DataGraph, vertices) -> torch.Tensor:
+    """1-hop dirty closure of a mutated vertex set: ``[Nv]`` bool.
+
+    The serving engine's bridge from mutations to the task set
+    (DESIGN.md §13): a mutation invalidates every update whose scope can
+    read the changed datum, the vertex itself and its neighbours (§3.1).
+    Seeding ``active=`` with this mask makes an incremental recompute a
+    plain scheduler run.  Only real neighbour slots mark a vertex."""
+    dev = graph.device
+    ids = torch.as_tensor(np.asarray(vertices, np.int64).reshape(-1),
+                          device=dev)
+    mask = torch.zeros(graph.n_vertices, dtype=torch.bool, device=dev)
+    if ids.numel() == 0:
+        return mask
+    mask = mask.index_fill(0, ids, True)
+    rows = graph.struct_rows(ids.to(torch.int32))
+    return mask.index_fill(0, rows.nbrs[rows.nbr_mask].long(), True)
 
 
 def stable_top_k(score: torch.Tensor, k: int) -> torch.Tensor:
@@ -650,3 +679,28 @@ class ExecutorCore:
                 state.active.any()):
             state = self._superstep(state)
         return state
+
+    # -- stepping against a mutated graph (the serving path) -----------
+    def step_on(self, graph: DataGraph, state: EngineState) -> EngineState:
+        """One superstep against ``graph``'s current structure (same
+        vertex set and strategy constants as the build graph): the
+        engine's graph takes ``graph``'s adjacency and degrees for the
+        step, then its own back.  The reference traces the structure as
+        an argument so slack inserts never recompile; eager torch has no
+        compile to save, so the swap is all it needs."""
+        base = self.graph
+        self.graph = dataclasses.replace(base, ell=graph.ell,
+                                         degree=graph.degree)
+        try:
+            return self._superstep(state)
+        finally:
+            self.graph = base
+
+    def probe_on(self, graph: DataGraph, state: EngineState) -> dict:
+        """``profile_probe`` against ``graph``'s current structure."""
+        base = self.graph
+        self.graph = graph
+        try:
+            return self.profile_probe(state)
+        finally:
+            self.graph = base

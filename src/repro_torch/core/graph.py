@@ -21,8 +21,13 @@ Vertex and edge data are dicts of tensors with leading dim ``Nv`` resp.
 ``w_cap=``) chunks rows wider than ``w_cap`` into virtual rows, as the
 reference does; ``width_policy="measured"`` picks the ladder (split or
 not) a fitted cost model prices cheapest (``choose_width_plan``).
-Mutation slack is not ported yet (ROADMAP A11): asking for it raises
-``NotImplementedError``.
+
+Mutation slack (``from_edges(slack=)``, DESIGN.md §13) reserves free
+slots in every row and spare edge rows, so ``insert_edges`` lands new
+edges without a rebuild; ``rebuild_compacted`` is the slow path when
+the slack runs out.  Neither ever writes a tensor of the graph it was
+given: every write is to a new tensor, so a reader holding the old
+graph's tensors (a published serving snapshot) never sees it.
 """
 from __future__ import annotations
 
@@ -650,23 +655,25 @@ def sliced_ell_from_slots(seg_start: np.ndarray, seg_cnt: np.ndarray,
                           flat: tuple, pad_edge: int, widths: Sequence[int],
                           max_deg: int,
                           bucket_sizes: Sequence[int] | None = None,
-                          device=None) -> SlicedEll:
+                          device=None, slack: int = 0) -> SlicedEll:
     """A ``SlicedEll`` from row slot lists: row ``r``'s real slots are
     ``flat[*][seg_start[r]: seg_start[r] + seg_cnt[r]]`` (``flat =
     (nbrs, edge_ids, is_src)``).  Each row goes to the smallest bucket
-    of ``widths`` covering its slot count, rows keep ascending id order
-    within a bucket, and empty buckets are dropped, unless
-    ``bucket_sizes`` forces every bucket's row count (empty rows pad it;
-    a ``ShardPlan`` keeps its shards' shapes equal this way).  It writes
-    the flat stores directly, so no ``[rows, max_deg]`` array is ever
-    made."""
+    of ``widths`` covering its slot count plus ``slack`` (the free slots
+    ``insert_edges`` fills), rows keep ascending id order within a
+    bucket, and empty buckets are dropped, unless ``bucket_sizes``
+    forces every bucket's row count (empty rows pad it; a ``ShardPlan``
+    keeps its shards' shapes equal this way).  It writes the flat stores
+    directly, so no ``[rows, max_deg]`` array is ever made."""
     device = resolve_device(device)
     seg_cnt = np.asarray(seg_cnt, np.int64)
     n_rows = len(seg_cnt)
     widths = tuple(widths)
-    if n_rows and widths[-1] < int(seg_cnt.max()):
-        raise ValueError("bucket ladder must cover every row's slot count")
-    widths, groups, sizes = _bucket_groups(widths, seg_cnt, bucket_sizes)
+    if n_rows and widths[-1] < int(seg_cnt.max()) + slack:
+        raise ValueError("bucket ladder must cover every row's slot count"
+                         + (" + slack" if slack else ""))
+    widths, groups, sizes = _bucket_groups(widths, seg_cnt + slack,
+                                           bucket_sizes)
     starts = (0, *np.cumsum(sizes).tolist())
     offs, pad = block_offsets(starts, widths)
     perm = np.full(starts[-1], n_rows, dtype=np.int32)
@@ -698,21 +705,41 @@ def sliced_ell_from_slots(seg_start: np.ndarray, seg_cnt: np.ndarray,
 # ----------------------------------------------------------------------
 
 def _build_ell_vectorized(n_vertices: int, edges: np.ndarray, md: int):
-    """Vectorized padded-ELL build (lexsort/cumsum slot assignment), a
-    copy of the reference's, including its self-loop semantics (both
-    endpoint writes share one slot; the non-src write wins; the slot
-    cursor advances once)."""
+    """The reference's padded ELL arrays ``[Nv, md]`` (``nbrs``,
+    ``mask``, ``edge_ids`` with the pad edge ``n_edges``, ``is_src``),
+    laid out from ``edge_slot_lists``: the tests hold the padded
+    builders against the reference's with them."""
     ne = len(edges)
     nbrs = np.zeros((n_vertices, md), dtype=np.int32)
     mask = np.zeros((n_vertices, md), dtype=bool)
     eids = np.full((n_vertices, md), ne, dtype=np.int32)
     is_src = np.zeros((n_vertices, md), dtype=bool)
-    if ne == 0:
-        return nbrs, mask, eids, is_src
+    start, cnt, (f_nbr, f_eid, f_src) = edge_slot_lists(n_vertices, edges)
+    rows = np.repeat(np.arange(n_vertices), cnt)
+    slots = np.arange(int(cnt.sum())) - np.repeat(start, cnt)
+    nbrs[rows, slots] = f_nbr
+    mask[rows, slots] = True
+    eids[rows, slots] = f_eid
+    is_src[rows, slots] = f_src
+    return nbrs, mask, eids, is_src
 
-    flat_v = edges.reshape(-1)                    # u0, v0, u1, v1, ...
-    # slot of occurrence k = prior occurrences of that vertex, counting a
-    # self-loop's two occurrences once
+
+def edge_slot_lists(n_vertices: int, edges: np.ndarray):
+    """Every row's real slots, ``(seg_start, counts, (nbrs, edge_ids,
+    is_src))`` as ``padded_slots`` returns them, straight from the edge
+    list, with no ``[Nv, max_deg]`` array (5.4 GB at 2^21 vertices and
+    width 260): the reference's vectorized slot rule.  Occurrence k of a
+    vertex takes slot k, a self-loop's two occurrences counting once
+    (the loop builder reads both cursors before either write); sorted
+    by vertex the occurrences are in slot order, a self-loop's two
+    writes adjacent, the later (its v side, ``is_src`` forced True)
+    kept."""
+    ne = len(edges)
+    if ne == 0:
+        z = np.zeros(n_vertices, np.int64)
+        return z, z.copy(), (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                             np.zeros(0, bool))
+    flat_v = edges.reshape(-1)
     vside_selfloop = np.zeros(2 * ne, dtype=np.int64)
     vside_selfloop[1::2] = edges[:, 0] == edges[:, 1]
     order = np.argsort(flat_v, kind="stable")
@@ -725,18 +752,16 @@ def _build_ell_vectorized(n_vertices: int, edges: np.ndarray, md: int):
     cum = np.cumsum(vside_selfloop[order])
     before_group = np.concatenate([[0], cum])[group_start]
     slot_sorted = rank_sorted - (cum - before_group[group_id])
-    slot = np.empty(2 * ne, dtype=np.int64)
-    slot[order] = slot_sorted
-
-    nbr_flat = edges[:, ::-1].reshape(-1)         # v0, u0, v1, u1, ...
-    eid_flat = np.repeat(np.arange(ne, dtype=np.int64), 2)
+    keep = np.ones(2 * ne, dtype=bool)
+    keep[:-1] = boundary[1:] | (slot_sorted[1:] != slot_sorted[:-1])
+    sel = order[keep]
     src_flat = np.tile(np.asarray([True, False]), ne)
-    nbrs[flat_v, slot] = nbr_flat
-    mask[flat_v, slot] = True
-    eids[flat_v, slot] = eid_flat
     src_flat[1::2] = edges[:, 0] == edges[:, 1]
-    is_src[flat_v, slot] = src_flat
-    return nbrs, mask, eids, is_src
+    cnt = np.bincount(sv[keep], minlength=n_vertices).astype(np.int64)
+    start = np.zeros(n_vertices, np.int64)
+    np.cumsum(cnt[:-1], out=start[1:])
+    return start, cnt, (edges[:, ::-1].reshape(-1)[sel].astype(np.int32),
+                        (sel // 2).astype(np.int32), src_flat[sel])
 
 
 # ----------------------------------------------------------------------
@@ -757,10 +782,20 @@ class DataGraph:
     # edge_perm[new] = input-order edge id; edge_inv_perm[input] = new
     edge_perm: np.ndarray | None = None
     edge_inv_perm: np.ndarray | None = None
+    # mutation slack: every row keeps >= ``slack`` free slots and edge
+    # rows [n_edges, edge_capacity) are reserved for ``insert_edges``;
+    # 0 is frozen storage
+    slack: int = 0
 
     @property
     def device(self) -> torch.device:
         return self.ell.device
+
+    @property
+    def edge_capacity(self) -> int:
+        """Edge rows the storage can address (``n_edges`` when built
+        without slack); the pad edge row sits at this index."""
+        return self.ell.pad_edge
 
     @staticmethod
     def from_edges(
@@ -776,6 +811,7 @@ class DataGraph:
         width_policy: str | None = None,
         cost_model=None,
         slack: int = 0,
+        edge_capacity: int | None = None,
         device=None,
     ) -> "DataGraph":
         """Build the sliced-ELL structure from an undirected edge list.
@@ -802,6 +838,14 @@ class DataGraph:
         calibration persisted for the type of ``device`` is loaded
         (``COSTMODEL_cuda.json`` for a card graph, never a CPU one), and
         with none the policy builds the pow2 default.
+
+        ``slack`` reserves at least ``slack`` free slots in every row
+        (the ladder reaches ``max_deg + slack``) and ``edge_capacity -
+        n_edges`` zeroed edge rows (default ``n_edges + ceil(Nv * slack
+        / 2)``, the most inserts the free slots can take), for
+        ``insert_edges``.  Free slots are ordinary padding until an
+        insert fills them.  Slack does not combine with hub splitting,
+        ``width_policy="measured"`` or ``bucket_widths``.
         """
         device = resolve_device(device)
         if width_policy not in (None, "pow2", "measured"):
@@ -835,18 +879,18 @@ class DataGraph:
         if isinstance(slack, bool) or not isinstance(slack, (int, np.integer)) \
                 or slack < 0:
             raise ValueError(f"slack must be a non-negative int, got {slack!r}")
+        if edge_capacity is not None and slack == 0:
+            raise ValueError(
+                "edge_capacity= only applies to slack > 0 graphs (a frozen "
+                "graph stores exactly n_edges rows)")
         if slack and (hub_split or width_policy == "measured"
                       or bucket_widths is not None):
             raise ValueError(
-                "slack= (mutable storage) is incompatible with "
-                "hub_split/w_cap/width_policy='measured'/bucket_widths: "
-                "those pick bucket ladders with no insert headroom; legal "
-                "combinations: slack alone, or the frozen-storage options "
-                "alone")
-        if slack:
-            raise NotImplementedError(
-                "slack= (mutable storage) is not ported to repro_torch "
-                "yet: ROADMAP A11")
+                "slack= (mutable storage, DESIGN.md §13) is incompatible "
+                "with hub_split/w_cap/width_policy='measured'/"
+                "bucket_widths: those pick bucket ladders with no insert "
+                "headroom; legal combinations: slack alone, or the "
+                "frozen-storage options alone")
         edges = np.asarray(edges, dtype=np.int64)
         if edges.size == 0:
             edges = edges.reshape(0, 2)
@@ -860,27 +904,41 @@ class DataGraph:
             md = max_deg
         md = max(md, 1)
 
-        nbrs, mask, eids, is_src = _build_ell_vectorized(
-            n_vertices, edges, md)
+        slot_lists = edge_slot_lists(n_vertices, edges)
         if width_policy == "measured":
             from repro_torch.profile.model import (load_cost_model,
                                                    resolve_cost_model)
             model = (resolve_cost_model(cost_model, device.type)
                      if cost_model is not None
                      else load_cost_model(device.type))
-            plan = (choose_width_plan(mask.sum(axis=1), md, model)
+            plan = (choose_width_plan(slot_lists[1], md, model)
                     if model is not None else None)
             if plan is not None and plan["hub_split"]:
                 hub_split, w_cap = True, plan["w_cap"]
         if hub_split and w_cap is None:
             w_cap = default_w_cap(np.maximum(deg, 1))
-        if hub_split and md > w_cap:
-            ell = build_split_ell(nbrs, mask, eids, is_src, pad_edge=ne,
-                                  w_cap=int(w_cap), device=device)
+        if slack:
+            # free columns for every row, and the padded slots pointing at
+            # the capacity pad row: edge ids [ne, capacity) stay free
+            cap = (ne + -(-n_vertices * slack // 2)
+                   if edge_capacity is None else int(edge_capacity))
+            if cap < ne:
+                raise ValueError(
+                    f"edge_capacity={cap} < n_edges={ne}: capacity must "
+                    "cover the edges already present")
+            md = md + slack
+            ell = sliced_ell_from_slots(
+                *slot_lists, cap, default_bucket_widths(md), md,
+                device=device, slack=slack)
+        elif hub_split and md > w_cap:
+            ell = split_ell_from_slots(*slot_lists, ne, int(w_cap), md,
+                                       device=device)
         else:
-            ell = build_sliced_ell(nbrs, mask, eids, is_src, pad_edge=ne,
-                                   widths=bucket_widths, device=device)
-        del nbrs, mask, eids, is_src
+            ell = sliced_ell_from_slots(
+                *slot_lists, ne, default_bucket_widths(md)
+                if bucket_widths is None else bucket_widths, md,
+                device=device)
+        del slot_lists
 
         edge_data = _tensor_dict(edge_data, device)
         if edge_locality and ne:
@@ -894,8 +952,10 @@ class DataGraph:
         else:
             order = np.arange(ne, dtype=np.int64)
             inv_order = order.copy()
-        # the pad edge row last, all zeros
-        edge_data = {k: torch.cat([v, v.new_zeros((1,) + v.shape[1:])])
+        # the reserved edge rows (capacity - ne of them), then the pad
+        # row last, all zeros
+        spare = ell.pad_edge - ne + 1
+        edge_data = {k: torch.cat([v, v.new_zeros((spare,) + v.shape[1:])])
                      for k, v in edge_data.items()}
         return DataGraph(
             n_vertices=n_vertices,
@@ -908,6 +968,7 @@ class DataGraph:
             edges_np=edges,
             edge_perm=order,
             edge_inv_perm=inv_order,
+            slack=int(slack),
         )
 
     # -- structure access ----------------------------------------------
@@ -952,6 +1013,152 @@ class DataGraph:
             vertex_data=_tensor_dict(self.vertex_data, device),
             edge_data=_tensor_dict(self.edge_data, device),
             colors=None if self.colors is None else self.colors.to(device))
+
+
+# ----------------------------------------------------------------------
+# Live mutations (DESIGN.md §13): slack inserts + compaction rebuild
+# ----------------------------------------------------------------------
+
+def _row_slot_counts(ell: SlicedEll) -> np.ndarray:
+    """Real (mask-true) slots of every row on the host: the insert
+    cursor.  Real slots are a prefix of every row (the builder and
+    ``insert_edges`` both keep it so), so a row's next free column is
+    its slot count, which is not its degree: a self-loop's two endpoint
+    writes share one slot.  Unsplit storage (slack graphs never split)."""
+    offs, _ = block_offsets(ell.starts, ell.widths)
+    mask = ell.slots.nbr_mask
+    per_pos = torch.cat([
+        mask[o: o + (e - s) * w].view(e - s, w).sum(1)
+        for o, s, e, w in zip(offs, ell.starts, ell.starts[1:],
+                              ell.widths)])
+    return per_pos[ell.inv_perm.long()].cpu().numpy().astype(np.int64)
+
+
+def insert_edges(graph: DataGraph, new_edges,
+                 new_edge_data: dict | None = None) -> DataGraph | None:
+    """Land new undirected edges in reserved slack slots, no rebuild.
+
+    Each new edge takes the next reserved edge row (ids ``n_edges``,
+    ``n_edges + 1``, ...) and the next free slot of both endpoint rows:
+    the slot order ``from_edges`` would have given them at the end of
+    the input list, so stored id == input-order id for inserted edges.
+    ``new_edge_data`` maps each edge field to ``[k, ...]`` rows written
+    into the reserved edge rows (left zero when omitted).
+
+    Returns a new ``DataGraph`` whose changed tensors are new ones (the
+    input graph's tensors are never written), or ``None`` when an
+    endpoint's row or the reserved edge rows are full: the caller then
+    compacts with ``rebuild_compacted``.  Self-loop inserts raise.
+    """
+    ell = graph.ell
+    if graph.slack <= 0:
+        raise ValueError(
+            "insert_edges needs mutable storage: build the graph with "
+            "DataGraph.from_edges(slack=...) (DESIGN.md §13)")
+    new_edges = np.asarray(new_edges, dtype=np.int64).reshape(-1, 2)
+    k = len(new_edges)
+    if k == 0:
+        return graph
+    if (new_edges[:, 0] == new_edges[:, 1]).any():
+        raise ValueError("self-loop inserts are unsupported")
+    if new_edges.min() < 0 or new_edges.max() >= graph.n_vertices:
+        raise ValueError(
+            f"edge endpoints must be in [0, {graph.n_vertices})")
+    ne, cap = graph.n_edges, ell.pad_edge
+    if ne + k > cap:
+        return None
+    dev = graph.device
+    cnt = _row_slot_counts(ell)
+    ends = np.unique(new_edges)
+    pos = ell.inv_perm[torch.from_numpy(ends).to(dev)].cpu().numpy()
+    starts = np.asarray(ell.starts, np.int64)
+    b = np.searchsorted(starts[1:], pos, side="right")
+    offs, _ = block_offsets(ell.starts, ell.widths)
+    width = dict(zip(ends.tolist(),
+                     np.asarray(ell.widths, np.int64)[b].tolist()))
+    base = dict(zip(ends.tolist(), (np.asarray(offs, np.int64)[b]
+                                    + (pos - starts[b])
+                                    * np.asarray(ell.widths)[b]).tolist()))
+    at, nbr, eid, src = [], [], [], []
+    for i, (u, v) in enumerate(new_edges.tolist()):
+        for r, other, is_src in ((u, v, True), (v, u, False)):
+            if cnt[r] >= width[r]:
+                return None        # the row is full: compact
+            at.append(base[r] + int(cnt[r]))
+            nbr.append(other)
+            eid.append(ne + i)
+            src.append(is_src)
+            cnt[r] += 1
+    idx = torch.tensor(at, dtype=torch.long, device=dev)
+    put = lambda t, vals: t.index_put(
+        (idx,), torch.tensor(vals, dtype=t.dtype, device=dev))
+    slots = ell.slots
+    new_ell = dataclasses.replace(ell, slots=EllRows(
+        put(slots.nbrs, nbr), put(slots.nbr_mask, [True] * len(at)),
+        put(slots.edge_ids, eid), put(slots.is_src, src)))
+    ends_t = torch.from_numpy(new_edges.reshape(-1)).to(dev)
+    degree = graph.degree.index_add(
+        0, ends_t, torch.ones_like(ends_t, dtype=graph.degree.dtype))
+    edge_data = graph.edge_data
+    if new_edge_data is not None and edge_data:
+        rows = torch.arange(ne, ne + k, device=dev)
+        edge_data = {key: d.index_copy(0, rows, torch.as_tensor(
+            np.asarray(new_edge_data[key])).to(dev, d.dtype))
+            for key, d in edge_data.items()}
+    fresh = np.arange(ne, ne + k, dtype=np.int64)
+    return dataclasses.replace(
+        graph, n_edges=ne + k, ell=new_ell, degree=degree,
+        edge_data=edge_data,
+        edges_np=np.concatenate([graph.edges_np, new_edges]),
+        edge_perm=np.concatenate([graph.edge_perm, fresh]),
+        edge_inv_perm=np.concatenate([graph.edge_inv_perm, fresh]))
+
+
+def input_order_edges(graph: DataGraph) -> tuple[np.ndarray, dict]:
+    """The *input-order* edge list (host) and edge data (tensors on the
+    graph's device, without the reserved and pad rows).
+
+    ``edge_perm[stored] = input`` inverts the bucket-major renumbering
+    and any insert extensions, so feeding the result back through
+    ``from_edges`` keeps every input-order edge id stable across a
+    compaction.
+    """
+    ne = graph.n_edges
+    edges_in = np.empty((ne, 2), dtype=np.int64)
+    edges_in[graph.edge_perm] = graph.edges_np
+    perm = torch.from_numpy(np.asarray(graph.edge_perm,
+                                       np.int64)).to(graph.device)
+
+    def back(a):
+        out = torch.empty_like(a[:ne])
+        out[perm] = a[:ne]
+        return out
+
+    return edges_in, {k: back(a) for k, a in graph.edge_data.items()}
+
+
+def rebuild_compacted(graph: DataGraph, extra_edges=None,
+                      extra_edge_data: dict | None = None,
+                      slack: int | None = None,
+                      edge_capacity: int | None = None) -> DataGraph:
+    """Full compaction rebuild: the storage built again from the graph's
+    input-order edges (plus pending inserts that no longer fit in its
+    slack), carrying the current vertex and edge data and reserving
+    fresh slack.  Input-order edge ids are kept; colors are not:
+    callers owning a coloring color the result again."""
+    edges_in, data_in = input_order_edges(graph)
+    if extra_edges is not None and len(extra_edges):
+        extra_edges = np.asarray(extra_edges, dtype=np.int64).reshape(-1, 2)
+        kx = len(extra_edges)
+        edges_in = np.concatenate([edges_in, extra_edges])
+        data_in = {key: torch.cat([a, (
+            a.new_zeros((kx,) + a.shape[1:]) if extra_edge_data is None
+            else torch.as_tensor(np.asarray(extra_edge_data[key])).to(
+                a.device, a.dtype))]) for key, a in data_in.items()}
+    return DataGraph.from_edges(
+        graph.n_vertices, edges_in, vertex_data=graph.vertex_data,
+        edge_data=data_in, slack=graph.slack if slack is None else slack,
+        edge_capacity=edge_capacity, device=graph.device)
 
 
 # ----------------------------------------------------------------------

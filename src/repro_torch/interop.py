@@ -16,7 +16,8 @@ Array keys: ``nbrs.<b>``, ``nbr_mask.<b>``, ``edge_ids.<b>``,
 ``vertex.<name>`` / ``edge.<name>`` for the data (edge data includes
 the pad row; a uint32 array arrives as int64 of the same values).  Meta keys: ``n_vertices``, ``n_edges``, ``max_deg``,
 ``widths``, ``starts``, ``pad_edge``, ``w_cap`` (None unless the graph is
-hub-split) and ``n_chunks_max``; a split graph also carries the arrays
+hub-split), ``n_chunks_max`` and optionally ``slack`` (0 when absent:
+frozen storage); a split graph also carries the arrays
 ``owner_of_vrow`` and ``vrow_offset``.
 
 Parameters: the reference's parameter pytree flattened to numpy arrays
@@ -75,7 +76,8 @@ def graph_from_arrays(arrays: dict, meta: dict, device=None) -> DataGraph:
                    if k.startswith("edge.")},
         edges_np=np.asarray(arrays["edges"], dtype=np.int64),
         edge_perm=np.asarray(arrays["edge_perm"]),
-        edge_inv_perm=np.asarray(arrays["edge_inv_perm"]))
+        edge_inv_perm=np.asarray(arrays["edge_inv_perm"]),
+        slack=int(meta.get("slack", 0)))
     if "colors" in arrays:
         graph = graph.with_colors(arrays["colors"])
     return graph
@@ -102,7 +104,8 @@ def graph_to_arrays(graph: DataGraph) -> tuple[dict, dict]:
     meta = dict(n_vertices=graph.n_vertices, n_edges=graph.n_edges,
                 max_deg=graph.max_deg, widths=list(ell.widths),
                 starts=list(ell.starts), pad_edge=ell.pad_edge,
-                w_cap=ell.w_cap, n_chunks_max=ell.n_chunks_max)
+                w_cap=ell.w_cap, n_chunks_max=ell.n_chunks_max,
+                slack=graph.slack)
     return arrays, meta
 
 

@@ -1142,3 +1142,91 @@ def test_mpi_als_on_card_equals_cpu(cuda):
         got.append(torch.cat([wu, wv]).cpu())
     # normal equations bitwise; LAPACK's and cuSOLVER's LU differ
     torch.testing.assert_close(got[1], got[0], rtol=1e-4, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# Fault tolerance and online serving on the card
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_8shard_kill_resume_on_card_is_bitwise(cuda, tmp_path):
+    """Eight ``LocalMesh`` shards on the card: a checkpoint-write
+    failure, a kill and a transient fault recover to the unfaulted run,
+    ranks, counts and ghost traffic bitwise."""
+    from repro_torch.core.partition import two_phase_partition
+    from repro_torch.ft import FaultEvent, FaultPlan
+    edges = zipf_edges(400, alpha=2.0, max_deg=32, seed=3)
+    g, upd, syncs = pagerank.build(edges, 400, device=cuda)
+    asg = two_phase_partition(400, g.edges_np, 8, seed=0)
+    for sched in ("chromatic", "locking"):
+        kw = dict(syncs=syncs, scheduler=sched, n_shards=8, partition=asg,
+                  num_supersteps=10, device=cuda)
+        if sched == "locking":
+            kw["max_pending"] = 16
+        base = api.run(g, upd, **kw)
+        r = api.run(g, upd, **kw, checkpoint_every=2,
+                    checkpoint_dir=str(tmp_path / sched),
+                    faults=FaultPlan([FaultEvent("checkpoint_fail", 4),
+                                      FaultEvent("kill", 5, shard=3),
+                                      FaultEvent("transient", 7)]))
+        assert [x.restored_superstep for x in r.restarts] == [2, 4, 6]
+        assert torch.equal(base.vertex_data["rank"], r.vertex_data["rank"])
+        assert (base.superstep, base.n_updates) == (r.superstep, r.n_updates)
+        assert base.stats.get("ghost_rows_sent") == r.stats.get(
+            "ghost_rows_sent")
+
+
+@pytest.mark.cuda
+def test_snapshot_written_on_card_finishes_on_cpu(cuda, tmp_path):
+    """Sharded and single-device snapshots written on the card load on
+    a ``device="cpu"`` engine and finish bitwise the card's run (CC: no
+    float arithmetic for the two devices to order differently)."""
+    from repro_torch.apps import cc
+    edges = zipf_edges(500, alpha=2.0, max_deg=32, seed=4)
+    g, upd, _ = cc.build(edges, 500, device=cuda)
+    for kw in (dict(scheduler="locking", max_pending=16),
+               dict(scheduler="chromatic", n_shards=4,
+                    partition=np.arange(500) % 4)):
+        d = tmp_path / str(len(kw))
+        full = api.run(g, upd, num_supersteps=8, checkpoint_every=4,
+                       checkpoint_dir=str(d), device=cuda, **kw)
+        snap = (d / "step_00000004" if "n_shards" in kw
+                else d / "state_step_00000004.npz")
+        kw.pop("partition", None)
+        cpu = api.run(g.to("cpu"), upd, num_supersteps=8,
+                      resume_from=str(snap), device="cpu", **kw)
+        assert torch.equal(full.vertex_data["label"].cpu(),
+                           cpu.vertex_data["label"])
+        assert (full.superstep, full.n_updates) == (cpu.superstep,
+                                                    cpu.n_updates)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sched", ["chromatic", "locking"])
+def test_serving_replay_on_card_equals_rebuild(cuda, sched):
+    from repro_torch.apps import cc
+    from repro_torch.data.pipeline import edge_stream
+    nv = 2000
+    edges = zipf_edges(nv, alpha=2.0, max_deg=64, seed=1)
+    g, upd, _ = cc.build(edges, nv, slack=4, device=cuda)
+    kw = {"max_pending": 256} if sched == "locking" else {}
+    serving = api.serve(g, upd, scheduler=sched, device=cuda, **kw)
+    pinned = serving.snapshot()
+    before = pinned.vertex_data["label"].clone()
+    serving.recompute()
+    added = []
+    for batch in edge_stream(nv, rate=64, seed=0, n_batches=4):
+        fresh = np.asarray([e for e in batch.edges.tolist()
+                            if serving.find_edge(*e) is None],
+                           np.int64).reshape(-1, 2)
+        serving.add_edges(fresh)
+        added.extend(fresh.tolist())
+        serving.recompute()
+    all_edges = np.vstack([edges, np.asarray(added, np.int64)])
+    assert torch.equal(pinned.vertex_data["label"], before)
+    g2, u2, _ = cc.build(all_edges, nv, device=cuda)
+    res = api.run(g2, u2, scheduler="chromatic", device=cuda)
+    assert torch.equal(serving.graph.vertex_data["label"],
+                       res.vertex_data["label"])
+    assert np.array_equal(res.vertex_data["label"].cpu().numpy(),
+                          cc.reference_components(all_edges, nv))

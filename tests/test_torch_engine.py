@@ -286,9 +286,10 @@ def test_route_and_dense_fold_match_reference():
 def test_unported_options_raise(monkeypatch):
     """The sequential oracle and ``trace=`` are ported (ROADMAP A7):
     they run, and so do the distributed engines (A9).  Fault tolerance
-    and online serving still raise, naming A10 and A11; an inapplicable
-    option (``exchange_edges`` on one device) raises the reference's
-    message; no GPU and no device raises."""
+    (A10) and online serving (A11) are ported too: half of a
+    checkpoint pair and a serving-only option raise the reference's
+    messages; an inapplicable option (``exchange_edges`` on one device)
+    raises the reference's message; no GPU and no device raises."""
     n, edges_fn, eps = ENGINE_GRAPHS["quickstart"]
     g, upd, syncs = pagerank.build(edges_fn(), n, eps=eps, device="cpu")
     res = api.run(g, upd, syncs=syncs, scheduler="sequential",
@@ -306,8 +307,8 @@ def test_unported_options_raise(monkeypatch):
         assert (dist.superstep, dist.n_updates) == (plain.superstep,
                                                     plain.n_updates)
     for kwargs, item in ((dict(exchange_edges=True), "does not accept"),
-                         (dict(checkpoint_every=2), "A10"),
-                         (dict(slack=2), "A11")):
+                         (dict(checkpoint_every=2), "go together"),
+                         (dict(slack=2), "api.serve")):
         with pytest.raises(ValueError, match=item):
             api.run(g, upd, device="cpu", **kwargs)
     with pytest.raises(ValueError, match="does not accept"):

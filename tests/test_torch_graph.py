@@ -187,11 +187,11 @@ def test_generators_match_reference():
     ({"w_cap": 6}, ValueError, "power of two"),
     ({"width_policy": "measured", "w_cap": 8}, ValueError,
      "chooses the bucket ladder"),
-    ({"slack": 2}, NotImplementedError, "A11")])
+    ({"edge_capacity": 50}, ValueError, "only applies")])
 def test_unported_storage_options_raise(kwargs, error, match):
-    """Hub splitting and measured width plans are ported: their illegal
-    values and combinations raise the reference's ValueErrors.  Slack
-    (A11) is not ported and says which ROADMAP item it waits for."""
+    """Hub splitting, measured width plans and slack (ROADMAP A11) are
+    ported: their illegal values and combinations raise the reference's
+    ValueErrors (an edge capacity without slack among them)."""
     edges = random_graph(20, 40)
     with pytest.raises(error, match=match):
         graph.DataGraph.from_edges(20, edges, {"x": np.zeros(20)},
@@ -252,3 +252,25 @@ def test_package_imports_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_slot_lists_and_padded_arrays_are_the_references(seed):
+    """``edge_slot_lists`` (what ``from_edges`` builds from) and the
+    padded arrays laid out from it, bitwise the reference's vectorized
+    builder, self-loops and duplicate edges included."""
+    rng = np.random.default_rng(seed)
+    nv = int(rng.integers(1, 40))
+    edges = rng.integers(0, nv, (int(rng.integers(0, 90)), 2))
+    deg = (np.bincount(edges[:, 0], minlength=nv)
+           + np.bincount(edges[:, 1], minlength=nv))
+    md = max(int(deg.max()) if len(edges) else 1, 1) + seed
+    want = ref_graph._build_ell_vectorized(nv, edges, md)
+    got = graph._build_ell_vectorized(nv, edges, md)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    start, cnt, flat = graph.edge_slot_lists(nv, edges)
+    w_start, w_cnt, w_flat = graph.padded_slots(*want)
+    assert np.array_equal(start, w_start) and np.array_equal(cnt, w_cnt)
+    for a, b in zip(flat, w_flat):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -147,5 +147,46 @@ def als_mpi_job(mesh) -> dict:
                 bytes_per_iter=info["bytes_per_iter"])
 
 
+def ft_job(mesh) -> dict:
+    """Distributed CC locking (4 pending a shard, 12 supersteps) with a
+    kill at 5 and snapshots every 2 supersteps under
+    ``$REPRO_TORCH_FT_DIR``, then a resume from step 6 with the plan
+    rebuilt from the snapshot; records the snapshot files each rank
+    wrote."""
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.apps import cc
+    from repro_torch.core.partition import two_phase_partition
+    from repro_torch.ft import FaultEvent, FaultPlan
+    from repro_torch.ft import snapshot as snap
+    ckpt = os.environ["REPRO_TORCH_FT_DIR"]
+    written, write = [], snap._write_npz
+
+    def spy(path, arrays):
+        written.append(os.path.basename(path))
+        write(path, arrays)
+    snap._write_npz = spy
+    g, upd, _ = cc.build(graph80(), 80, device="cpu")
+    kw = dict(scheduler="locking", max_pending=4, n_shards=mesh.n_shards,
+              num_supersteps=12, device="cpu", mesh=mesh)
+    faulted = api.run(
+        g, upd, **kw, checkpoint_every=2, checkpoint_dir=ckpt,
+        faults=FaultPlan([FaultEvent("kill", superstep=5)]),
+        partition=two_phase_partition(80, g.edges_np, mesh.n_shards,
+                                      seed=0))
+    resumed = api.run(g, upd, **kw,
+                      resume_from=os.path.join(ckpt, "step_00000006"))
+    every = [None] * mesh.n_shards
+    dist.all_gather_object(every, sorted(set(written)))
+    out = {f"written_{r}": np.asarray(w) for r, w in enumerate(every)}
+    for key, r in (("faulted", faulted), ("resumed", resumed)):
+        out[f"{key}_label"] = r.vertex_data["label"].numpy()
+        out[f"{key}_counts"] = [r.superstep, r.n_updates,
+                                r.stats["ghost_rows_sent"],
+                                r.stats["ghost_rows_full"]]
+    out["restarts"] = np.asarray([x.error_type for x in faulted.restarts])
+    return out
+
+
 JOBS = {"pagerank": pagerank_job, "cc_locking": cc_locking_job,
-        "als_mpi": als_mpi_job}
+        "als_mpi": als_mpi_job, "ft": ft_job}

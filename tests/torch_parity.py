@@ -30,7 +30,8 @@ def reference_arrays(g) -> tuple[dict, dict]:
     meta = dict(n_vertices=g.n_vertices, n_edges=g.n_edges,
                 max_deg=g.max_deg, widths=list(ell.widths),
                 starts=list(ell.starts), pad_edge=ell.pad_edge,
-                w_cap=ell.w_cap, n_chunks_max=ell.n_chunks_max)
+                w_cap=ell.w_cap, n_chunks_max=ell.n_chunks_max,
+                slack=g.slack)
     return arrays, meta
 
 
