@@ -239,7 +239,34 @@ Phases (any failure exits non-zero and prints no result):
                  the slack's extra slots and bytes; (h) 8 shards on a
                  2^17-vertex Zipf graph, two rounds, incremental ==
                  rebuild == union-find;
-21. report     — a ``{"kernels": [...]}`` line, then the contract line
+21. model families — first, at each architecture's reduced config in
+                 float32 with TF32 off: 4 decode steps on the GPU against
+                 the CPU for all 10 architectures (each step from the same
+                 state), logits within 1e-4; teacher-forced decode against
+                 ``prefill`` on the GPU for phi3.5-moe, qwen3-moe (capacity
+                 factor E / k: no drops), falcon-mamba, jamba, llava (text
+                 only) and seamless (decoding against ``mem_kv`` of its
+                 encoder), within 3e-2 * (1 + |prefill|); the Mamba block's
+                 decode against its chunked scan within 5e-2 (bf16).  Then
+                 on the card in bf16, one model at a time: (a) all of
+                 falcon-mamba-7b, prefill of 4,096 tokens and decode_32k at
+                 batch 128; (b) phi3.5-moe at full width, 8 of 32 layers;
+                 (c) one period of jamba-1.5-large (8 layers) at full
+                 width with 8 of its 16 experts; (d) llava-next-34b at full
+                 width, 8 of 60 layers, prefill of 2,880 patches + 192
+                 tokens; (e) all of seamless-m4t-medium, its encoder over
+                 32,768 frames x 4 and ``mem_kv`` into the state; each
+                 decodes 16 greedy tokens at decode_32k (batch 4 unless
+                 said), window_attention's launches set to 0 just before
+                 and read just after (0, 8, 1, 8 and 24 a step), each
+                 step's MoE drops counted; ms a step, tokens/s, the step's
+                 bytes over the HBM rate, peak memory, one step's layers
+                 and idle share; for (b), (c), (e) one more step's first
+                 attention, cross-attention, Mamba and MoE layers against
+                 float64 on the host, normwise, and the MoE's experts,
+                 positions and kept flags against the host's dispatch
+                 from the card's router logits, exactly;
+22. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -1470,37 +1497,58 @@ def check_attention_on_host(torch, captured, n_rep, pairs, rng):
     return worst
 
 
-def host_decode_layer(np, cfg, p, x, ck, cv, pos):
-    """One decode layer for one request in float64 numpy, from the
-    reference's equations: ``p`` the layer's parameters by name; x [d];
-    ck / cv [W, Hkv, dh], the layer's cache rows, get the new token's K/V
-    at ring slot ``pos % W``; rope's angles are float32, as the reference
-    defines them.  Returns (x, k, v)."""
-    assert cfg.act == "silu", cfg.act
+def host_norm(np, t, scale, eps):
+    return t / np.sqrt((t * t).mean(-1, keepdims=True) + eps) * scale
+
+
+def host_attention(np, cfg, p, h, ck, cv, pos):
+    """Decode attention for one request in float64 numpy, from the
+    reference's equations: ``p`` the attention's parameters by name
+    (``wq`` ...); h [d], the normed input; ck / cv [W, Hkv, dh], the
+    layer's cache rows, get the new token's K/V at ring slot ``pos % W``
+    and the query attends to the first ``min(pos + 1, W)``; rope's angles
+    are float32, as the reference defines them.  Returns (out, k, v),
+    ``out`` after ``wo``."""
     dh, half, eps = cfg.dh, cfg.dh // 2, cfg.norm_eps
-    norm = lambda t, s: t / np.sqrt((t * t).mean(-1, keepdims=True) + eps) * s
     freqs = np.float32(1) / np.float32(cfg.rope_theta) ** (
         np.arange(half, dtype=np.float32) / np.float32(half))
     ang = (np.float32(pos) * freqs).astype(np.float64)
     cos, sin = np.cos(ang), np.sin(ang)
     rope = lambda t: np.concatenate([t[:, :half] * cos - t[:, half:] * sin,
                                      t[:, half:] * cos + t[:, :half] * sin], -1)
-    h = norm(x, p["norm1"])
-    q = (h @ p["mix.wq"]).reshape(cfg.n_heads, dh)
-    k = (h @ p["mix.wk"]).reshape(cfg.n_kv_heads, dh)
-    v = (h @ p["mix.wv"]).reshape(cfg.n_kv_heads, dh)
+    q = (h @ p["wq"]).reshape(cfg.n_heads, dh)
+    k = (h @ p["wk"]).reshape(cfg.n_kv_heads, dh)
+    v = (h @ p["wv"]).reshape(cfg.n_kv_heads, dh)
     if cfg.qk_norm:
-        q, k = norm(q, p["mix.q_norm"]), norm(k, p["mix.k_norm"])
+        q = host_norm(np, q, p["q_norm"], eps)
+        k = host_norm(np, k, p["k_norm"], eps)
     q, k = rope(q), rope(k)
     w = ck.shape[0]
     ck[pos % w], cv[pos % w] = k, v
-    n, n_rep = min(pos + 1, w), cfg.n_heads // cfg.n_kv_heads
+    return host_softmax_attend(np, cfg, q, ck[:min(pos + 1, w)],
+                               cv[:min(pos + 1, w)]) @ p["wo"], k, v
+
+
+def host_softmax_attend(np, cfg, q, k, v):
+    """q [H, dh] over rows k / v [n, Hkv, dh]: [H * dh] in float64."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
     o = np.empty_like(q)
     for hi in range(cfg.n_heads):
-        sc = ck[:n, hi // n_rep] @ q[hi] / np.sqrt(dh)
+        sc = k[:, hi // n_rep] @ q[hi] / np.sqrt(cfg.dh)
         pr = np.exp(sc - sc.max())
-        o[hi] = (pr / pr.sum()) @ cv[:n, hi // n_rep]
-    x = x + o.reshape(-1) @ p["mix.wo"]
+        o[hi] = (pr / pr.sum()) @ v[:, hi // n_rep]
+    return o.reshape(-1)
+
+
+def host_decode_layer(np, cfg, p, x, ck, cv, pos):
+    """One dense decode layer for one request in float64 numpy: ``p`` the
+    layer's parameters by name; x [d]; ck / cv as ``host_attention``.
+    Returns (x, k, v)."""
+    assert cfg.act == "silu", cfg.act
+    norm = lambda t, s: host_norm(np, t, s, cfg.norm_eps)
+    mix = {k[4:]: v for k, v in p.items() if k.startswith("mix.")}
+    out, k, v = host_attention(np, cfg, mix, norm(x, p["norm1"]), ck, cv, pos)
+    x = x + out
     h = norm(x, p["norm2"])
     g = h @ p["ffn.w_gate"]
     x = x + (g / (1 + np.exp(-g)) * (h @ p["ffn.w_up"])) @ p["ffn.w_down"]
@@ -4423,6 +4471,619 @@ def serving_sharded(torch, np, api, cc, edge_stream, dev):
         raise AssertionError("(h) sharded serving differs from the rebuild")
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the other model families (moe, ssm, hybrid, vlm, audio)
+# ----------------------------------------------------------------------
+
+FAMILY_CTX = 32_768            # decode_32k's context
+FAMILY_TOKENS = 16
+# (label, arch, config changes, batch, B4 launches a step, what else runs):
+# whole where the card holds the model, else at full width with fewer
+# layers (and the hybrid with half its experts)
+FAMILY_RUNS = (
+    ("a", "falcon-mamba-7b", {}, 128, 0, {"prefill_tokens": 4096}),
+    ("b", "phi3.5-moe-42b-a6.6b", {"n_layers": 8}, 4, 8, {}),
+    ("c", "jamba-1.5-large-398b", {"n_layers": 8, "n_experts": 8}, 4, 1, {}),
+    ("d", "llava-next-34b", {"n_layers": 8}, 4, 8, {"prefill_tokens": 192}),
+    ("e", "seamless-m4t-medium", {}, 4, 24, {"frames": 32_768}),
+)
+# the GPU-vs-CPU and decode-vs-prefill gates' reduced runs
+FAMILY_PARITY_STEPS = 4
+FAMILY_TF_TOKENS = 16
+# the reference's own tolerances: test_decode_matches_forward_logits and
+# test_mamba_decode_matches_train_scan
+DECODE_PREFILL_TOL = 3e-2
+MAMBA_SCAN_TOL = 5e-2
+
+
+def family_cfg(arch, changes):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    changes = dict(changes)
+    if "n_experts" in changes:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=changes.pop("n_experts")))
+    return dataclasses.replace(cfg, **changes)
+
+
+def state_to(state, device):
+    """A copy of a serving state on ``device``."""
+    import dataclasses
+    up = lambda t: None if t is None else t.to(device, copy=True)
+    return dataclasses.replace(
+        state, cache_k=up(state.cache_k), cache_v=up(state.cache_v),
+        cache_len=up(state.cache_len), mem_k=up(state.mem_k),
+        mem_v=up(state.mem_v),
+        mamba_state=(None if state.mamba_state is None else
+                     {k: up(v) for k, v in state.mamba_state.items()}))
+
+
+def fill_state(torch, state, gen, mem=True):
+    """Random caches, Mamba states (h at 0.1) and, with ``mem``, memory."""
+    for t in (state.cache_k, state.cache_v) + ((state.mem_k, state.mem_v)
+                                              if mem else ()):
+        if t is not None:
+            t.copy_(torch.randn(t.shape, generator=gen, device=gen.device))
+    if state.mamba_state is not None:
+        for k, t in state.mamba_state.items():
+            t.copy_(torch.randn(t.shape, generator=gen, device=gen.device)
+                    * (0.1 if k == "h" else 1.0))
+
+
+def phase_family_parity(torch, ctx):
+    """The reduced configs: GPU vs CPU decode for all 10 architectures,
+    teacher-forced decode vs prefill on the GPU for every family, and the
+    Mamba block's decode vs its chunked scan."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import attention, mamba, model
+    from repro_torch.serve import engine
+    dev = ctx["dev"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst_all = 0.0
+        for arch in configs.ARCHS:
+            cfg = configs.get(arch).reduced()
+            cpu = model.init_params(cfg, seed=0, dtype=torch.float32,
+                                    device="cpu")
+            gpu = model.Model(cfg, dtype=torch.float32, device=dev)
+            gpu.load_state_dict(cpu.state_dict())
+            cst = engine.init_cache(cfg, 3, 96, dtype=torch.float32,
+                                    device="cpu")
+            fill_state(torch, cst, torch.Generator().manual_seed(1))
+            if not cfg.enc_dec:
+                cst.cache_len.copy_(torch.tensor([96, 5, 400],
+                                                 dtype=torch.int32))
+            tok = torch.tensor([[3], [77], [cfg.vocab - 1]],
+                               dtype=torch.int32)
+            worst = 0.0
+            for _ in range(FAMILY_PARITY_STEPS):
+                # each step starts both from the CPU's state: the bf16 conv
+                # tail can round a float32 ulp apart to neighbouring values
+                gst = state_to(cst, dev)
+                cl, cst = engine.decode_step(cpu, cfg, tok, cst)
+                gl, _ = engine.decode_step(gpu, cfg, tok.to(dev), gst)
+                worst = max(worst, float((gl.cpu() - cl)[:, :cfg.vocab]
+                                         .abs().max()))
+                tok = torch.argmax(cl[:, :cfg.vocab], dim=-1)[:, None].int()
+            log(f"  {arch} reduced ({cfg.arch_type}), float32: "
+                f"{FAMILY_PARITY_STEPS} decode steps GPU vs CPU, logits max "
+                f"|diff| {worst:.2e}")
+            worst_all = max(worst_all, worst)
+            if not worst <= DECODE_F32_TOL:
+                raise AssertionError(f"{arch}: GPU decode off the CPU's by "
+                                     f"{worst}")
+        log(f"GPU vs CPU, 10 architectures: worst {worst_all:.2e} (limit "
+            f"{DECODE_F32_TOL})")
+
+        gen = torch.Generator(device=dev).manual_seed(2)
+        b, s = 2, FAMILY_TF_TOKENS
+        for arch in ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                     "falcon-mamba-7b", "jamba-1.5-large-398b",
+                     "llava-next-34b", "seamless-m4t-medium"):
+            cfg = configs.get(arch).reduced()
+            if cfg.moe is not None:
+                # capacity factor E / k: cap = S, so neither grouping (a
+                # row in prefill, the batch in decode) drops a token
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=cfg.moe.n_experts
+                    / cfg.moe.top_k))
+            params = model.init_params(cfg, seed=3, dtype=torch.float32,
+                                       device=dev)
+            toks = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            batch = {"tokens": toks}
+            st = engine.init_cache(cfg, b, s, dtype=torch.float32,
+                                   device=dev)
+            st.cache_len.zero_()
+            if cfg.arch_type == "vlm":
+                # decode takes no patches: the text-only prefill
+                batch["patches"] = torch.zeros((b, 0, cfg.d_model),
+                                               device=dev)
+            if cfg.arch_type == "audio":
+                frames = torch.randn((b, s, cfg.d_model), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                batch["frames"] = frames
+                mem = model._encode(params, cfg, frames)
+                for i, lp in enumerate(params.layers):
+                    k, v = attention.mem_kv(lp.cross, cfg, mem)
+                    st.mem_k[i].copy_(k)
+                    st.mem_v[i].copy_(v)
+            want = model.prefill(params, cfg, batch)
+            for i in range(s):
+                logits, st = engine.decode_step(params, cfg,
+                                                toks[:, i:i + 1], st)
+            d, ref = logits[:, :cfg.vocab], want[:, :cfg.vocab]
+            diff = float((d - ref).abs().max())
+            excess = float(((d - ref).abs() - DECODE_PREFILL_TOL
+                            * (1 + ref.abs())).max())
+            log(f"  {arch} reduced, float32: {s} teacher-forced decode steps "
+                f"vs prefill, last logits max |diff| {diff:.2e} (limit "
+                f"{DECODE_PREFILL_TOL} * (1 + |prefill|))")
+            if not excess <= 0:
+                raise AssertionError(f"{arch}: decode off prefill by {diff}")
+
+        cfg = configs.get("falcon-mamba-7b").reduced()
+        layer = mamba.Mamba(cfg, torch.Generator(device=dev).manual_seed(4))
+        x = torch.randn((2, 9, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y_train = mamba.apply_train(layer, cfg, x)
+        mst = mamba.init_decode_state(cfg, 2, dev)
+        y_dec = torch.cat([mamba.apply_decode(layer, cfg, x[:, i:i + 1], mst)
+                           for i in range(9)], dim=1)
+        diff = float((y_train.float() - y_dec.float()).abs().max())
+        log(f"  Mamba block (falcon-mamba reduced, bf16): decode vs chunked "
+            f"scan max |diff| {diff:.2e} (limit {MAMBA_SCAN_TOL})")
+        if not diff <= MAMBA_SCAN_TOL:
+            raise AssertionError(f"Mamba decode off its scan by {diff}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    family_attention_cases(torch, ctx)
+
+
+def family_attention_cases(torch, ctx):
+    """B4 against its plain version at the new families' head groups,
+    bf16, decode_32k's full 32,768-row cache at batch 4: qwen3-moe's 64/4
+    heads (n_rep 16: two blocks of 8 a KV head), jamba's 64/8 (n_rep 8),
+    phi3.5-moe's and llava's 32/8 and 56/8, and seamless's
+    cross-attention (16/16 heads of 64 over its whole memory, kv_len =
+    T)."""
+    from repro_torch import configs
+    dev = ctx["dev"]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+    for arch, what in (("qwen3-moe-235b-a22b", "self"),
+                       ("jamba-1.5-large-398b", "self"),
+                       ("phi3.5-moe-42b-a6.6b", "self"),
+                       ("llava-next-34b", "self"),
+                       ("seamless-m4t-medium", "cross, kv_len = T")):
+        c = configs.get(arch)
+        cases.append(attention_case(
+            torch, f"{arch} {what}, bf16", 4, c.n_heads, c.n_kv_heads,
+            FAMILY_CTX, c.dh, torch.bfloat16, "full", flush, gen))
+    ctx["attn_cases"] = ctx.get("attn_cases", []) + cases
+
+
+def family_layers():
+    """``(owner, attribute, label)`` of each layer a family's decode step
+    is split into."""
+    from repro_torch.models import attention, mamba, model, moe
+    from repro_torch.serve import engine
+    return [(model, "_embed_tokens", "embed"),
+            (engine, "rmsnorm", "norms"),
+            (attention, "decode_attention",
+             "attention (QKV, rope, insert, B4, wo)"),
+            (attention, "cross_attention_decode", "cross-attention (B4)"),
+            (mamba, "apply_decode", "Mamba step"),
+            (moe, "route", "MoE router"),
+            (moe, "dispatch", "MoE dispatch"),
+            (moe, "expert_ffn", "expert FFN"),
+            (moe, "combine", "MoE combine"),
+            (model, "_mlp_apply", "MLP"),
+            (model, "_logits", "logits")]
+
+
+class StepCapture:
+    """Installed around one decode step: keeps the inputs and outputs of
+    the first attention, cross-attention, Mamba and MoE layer it runs
+    (the MoE's router logits, experts, gates, positions and kept flags
+    with them)."""
+
+    def __init__(self):
+        from repro_torch.models import attention, mamba, moe
+        self.got, self.saved, self.inner = {}, [], {}
+
+        def wrap(owner, name, fn):
+            real = getattr(owner, name)
+            self.saved.append((owner, name, real))
+            setattr(owner, name, fn(real))
+
+        def attn(real):
+            def run(p, cfg, x, ck, cv, clen, slot=None):
+                out = real(p, cfg, x, ck, cv, clen, slot)
+                self.got.setdefault("attention", (p, x.clone(), ck, cv,
+                                                  clen.clone(), out.clone()))
+                return out
+            return run
+
+        def cross(real):
+            def run(p, cfg, x, mk, mv):
+                out = real(p, cfg, x, mk, mv)
+                self.got.setdefault("cross", (p, x.clone(), mk, mv,
+                                              out.clone()))
+                return out
+            return run
+
+        def ssm(real):
+            def run(p, cfg, x, state):
+                before = {k: v.clone() for k, v in state.items()}
+                y = real(p, cfg, x, state)
+                self.got.setdefault("mamba", (p, x.clone(), before,
+                                              {k: v.clone() for k, v in
+                                               state.items()}, y.clone()))
+                return y
+            return run
+
+        def keep_inner(key):
+            def make(real):
+                def run(*a):
+                    out = real(*a)
+                    self.inner[key] = out
+                    return out
+                return run
+            return make
+
+        def moe_apply(real):
+            def run(p, cfg, x):
+                y, aux = real(p, cfg, x)
+                if "moe" not in self.got:
+                    logits, gate, eidx, _ = self.inner["route"]
+                    _, pos, keep = self.inner["dispatch"]
+                    self.got["moe"] = (p, x.clone(), y.clone(), logits.clone(),
+                                       gate.clone(), eidx.clone(), pos.clone(),
+                                       keep.clone())
+                return y, aux
+            return run
+        wrap(attention, "decode_attention", attn)
+        wrap(attention, "cross_attention_decode", cross)
+        wrap(mamba, "apply_decode", ssm)
+        wrap(moe, "route", keep_inner("route"))
+        wrap(moe, "dispatch", keep_inner("dispatch"))
+        wrap(moe, "apply", moe_apply)
+
+    def remove(self):
+        for owner, name, real in reversed(self.saved):
+            setattr(owner, name, real)
+
+
+def host64(torch, t):
+    """A float64 numpy copy of a card tensor (converted on the card:
+    exact from bf16 and float32)."""
+    return t.detach().double().cpu().numpy()
+
+
+def host_mamba_step(np, cfg, p, x, h, conv):
+    """The O(1) Mamba step for one request in float64: x [d] (the normed
+    input), h [di, ds], conv [d_conv - 1, di].  Returns (y, h, conv)."""
+    from repro_torch.models.mamba import dt_rank
+    di, ds, dtr = cfg.d_inner, cfg.ssm.d_state, dt_rank(cfg)
+    silu = lambda t: t / (1 + np.exp(-t))
+    xz = x @ p("in_proj")
+    hist = np.concatenate([conv, xz[None, :di]], axis=0)
+    xc = silu((hist * p("conv_w")).sum(0) + p("conv_b"))
+    proj = xc @ p("x_proj")
+    dt = np.logaddexp(0.0, proj[:dtr] @ p("dt_proj") + p("dt_bias"))
+    bm, cm = proj[dtr:dtr + ds], proj[dtr + ds:]
+    h = h * np.exp(dt[:, None] * -np.exp(p("A_log"))) \
+        + (dt * xc)[:, None] * bm[None, :]
+    y = (h @ cm + xc * p("D")) * silu(xz[di:])
+    return y @ p("out_proj"), h, hist[1:]
+
+
+def host_dispatch(np, logits, k, cap):
+    """The dispatch from the card's float32 router logits [G, S, E]:
+    top-k experts (stable, the lower index first on a tie), each
+    assignment's place among its expert's in token order, and whether it
+    is below ``cap``.  Returns (eidx [G,S,k], pos [G,S*k], keep)."""
+    eidx = np.argsort(-logits, axis=-1, kind="stable")[..., :k]
+    g = eidx.shape[0]
+    flat = eidx.reshape(g, -1)
+    pos = np.zeros_like(flat)
+    for gi in range(g):
+        seen = {}
+        for i, e in enumerate(flat[gi]):
+            pos[gi, i] = seen.get(int(e), 0)
+            seen[int(e)] = pos[gi, i] + 1
+    return eidx, pos, pos < cap
+
+
+def check_family_step(torch, np, cfg, got):
+    """The captured layers of one step against float64 on the host,
+    normwise over each request's vector; for a MoE layer, the routing
+    recomputed on the host from the card's router logits, exactly.
+    Returns ``{quantity: largest normwise error}`` and the drop counts."""
+    from repro_torch.models import moe
+    f = lambda t: host64(torch, t)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                         1e-30))
+    worst, notes = {}, {}
+
+    def put(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    def params_of(module):
+        cache = {}
+
+        def get(name):
+            if name not in cache:
+                cache[name] = f(getattr(module, name))
+            return cache[name]
+        return get
+    if "attention" in got:
+        p, x, ck, cv, clen, out = got["attention"]
+        get = params_of(p)
+        names = ["wq", "wk", "wv", "wo"] + (["q_norm", "k_norm"]
+                                            if cfg.qk_norm else [])
+        pd = {n: get(n) for n in names}
+        for r in range(x.shape[0]):
+            pos = int(clen[r])
+            slot = pos % ck.shape[1]
+            o, k, v = host_attention(np, cfg, pd, f(x[r, 0]), f(ck[r]),
+                                     f(cv[r]), pos)
+            put("attention out", rel(f(out[r, 0]), o))
+            put("inserted K", rel(f(ck[r, slot]), k))
+            put("inserted V", rel(f(cv[r, slot]), v))
+    if "cross" in got:
+        p, x, mk, mv, out = got["cross"]
+        get = params_of(p)
+        for r in range(x.shape[0]):
+            q = (f(x[r, 0]) @ get("wq")).reshape(cfg.n_heads, cfg.dh)
+            if cfg.qk_norm:
+                q = host_norm(np, q, get("q_norm"), cfg.norm_eps)
+            o = host_softmax_attend(np, cfg, q, f(mk[r]), f(mv[r])) \
+                @ get("wo")
+            put("cross-attention out", rel(f(out[r, 0]), o))
+    if "mamba" in got:
+        p, x, before, after, y = got["mamba"]
+        get = params_of(p)
+        for r in range(x.shape[0]):
+            yh, h, conv = host_mamba_step(np, cfg, get, f(x[r, 0]),
+                                          f(before["h"][r]),
+                                          f(before["conv"][r]))
+            put("Mamba out", rel(f(y[r, 0]), yh))
+            put("Mamba h", rel(f(after["h"][r]), h))
+            put("Mamba conv tail", rel(f(after["conv"][r]), conv))
+    if "moe" in got:
+        p, x, y, logits, gate, eidx, pos, keep = got["moe"]
+        k, n_exp = cfg.moe.top_k, cfg.moe.n_experts
+        g_logits = logits.cpu().numpy()
+        cap = moe.capacity(cfg, g_logits.shape[1])
+        he, hp, hk = host_dispatch(np, g_logits, k, cap)
+        same = (np.array_equal(he, eidx.cpu().numpy())
+                and np.array_equal(hp, pos.cpu().numpy())
+                and np.array_equal(hk, keep.cpu().numpy()))
+        notes.update(cap=cap, dropped=int((~hk).sum()),
+                     assignments=int(hk.size), routing_equal=same)
+        if not same:
+            raise AssertionError("the MoE dispatch differs from the host's "
+                                 "recomputation from the router logits")
+        xs = f(x.reshape(-1, x.shape[-1]))                 # token rows
+        lg = xs @ f(p.router)
+        put("router logits", max(rel(g_logits.reshape(lg.shape)[t], lg[t])
+                                 for t in range(len(lg))))
+        pr = np.exp(lg - lg.max(-1, keepdims=True))
+        pr /= pr.sum(-1, keepdims=True)
+        flat_e = he.reshape(len(xs), k)
+        gates = np.take_along_axis(pr, flat_e, -1)
+        gates /= gates.sum(-1, keepdims=True)
+        kept = hk.reshape(len(xs), k)
+        yh = np.zeros_like(xs)
+        act = {"silu": lambda t: t / (1 + np.exp(-t)),
+               "gelu": lambda t: 0.5 * t * (1 + np.tanh(
+                   np.sqrt(2 / np.pi) * (t + 0.044715 * t ** 3)))}[cfg.act]
+        for e in sorted({int(e) for e in flat_e[kept]}):
+            wg, wu, wd = (f(getattr(p, n)[e]) for n in ("w_gate", "w_up",
+                                                          "w_down"))
+            for t, j in zip(*np.nonzero((flat_e == e) & kept)):
+                yh[t] += gates[t, j] * ((act(xs[t] @ wg) * (xs[t] @ wu))
+                                        @ wd)
+            del wg, wu, wd
+        yc = f(y.reshape(-1, y.shape[-1]))
+        put("MoE out", max(rel(yc[t], yh[t]) for t in range(len(xs))))
+    return worst, notes
+
+
+def step_bytes(cfg, params, state, kv_rows):
+    """Bytes one decode step must move: every weight it reads once (all
+    but the input embedding's gathered rows; every expert, since the
+    capacity buffer runs each), the valid K/V rows of each attention
+    layer, the cross-attention memory, and the Mamba states read and
+    written."""
+    n = sum(t.numel() * t.element_size() for name, t in
+            params.named_parameters()
+            if not (name == "embed" and params.out is not None))
+    if state.cache_k is not None:
+        n += 2 * kv_rows * state.cache_k.shape[0] * state.cache_k[0, 0, 0] \
+            .numel() * state.cache_k.element_size()
+    if state.mem_k is not None:
+        n += 2 * state.mem_k.numel() * state.mem_k.element_size()
+    if state.mamba_state is not None:
+        n += 2 * sum(t.numel() * t.element_size()
+                     for t in state.mamba_state.values())
+    return n
+
+
+def phase_families(torch, ctx):
+    """Runs (a)-(e) on the card in bf16, one at a time; B4's launches
+    on their decode paths add to the main path's count."""
+    counts = ctx.setdefault("launches", {})
+    release(torch, ctx)
+    for run in FAMILY_RUNS:
+        counts["window_attention"] = (counts.get("window_attention", 0)
+                                      + family_run(torch, ctx, *run))
+        release(torch, ctx)
+
+
+def family_run(torch, ctx, label, arch, changes, batch, b4_per_step, extra):
+    """One run of phase 21; returns its window_attention launches."""
+    import numpy as np
+
+    from repro_torch.kernels.window_attention import window_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model, moe
+    from repro_torch.serve import engine
+    dev = ctx["dev"]
+    cfg = family_cfg(arch, changes)
+    reduced = ", ".join(f"{k} {v}" for k, v in changes.items()) or "whole"
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"({label}) {arch} ({cfg.arch_type}; {reduced}): {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {n_params:,} bf16 parameters "
+        f"({n_params * 2 / 1e9:.2f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    if "prefill_tokens" in extra:
+        s = extra["prefill_tokens"]
+        pb = {"tokens": torch.randint(0, cfg.vocab, (1, s), generator=gen,
+                                      device=dev, dtype=torch.int32)}
+        if cfg.arch_type == "vlm":
+            pb["patches"] = torch.randn((1, cfg.n_frontend_tokens,
+                                         cfg.d_model), generator=gen,
+                                        device=dev).to(torch.bfloat16)
+        for rep in range(2):            # the first call warms up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            lg = model.prefill(params, cfg, pb)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        positions = s + (cfg.n_frontend_tokens if cfg.arch_type == "vlm"
+                         else 0)
+        log(f"({label}) prefill of {positions} positions, batch 1: "
+            f"{secs:.3f} s ({positions / secs:,.0f} tokens/s), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not (lg.shape == (1, model.vocab_padded(cfg))
+                and bool(torch.isfinite(lg[:, :cfg.vocab]).all())):
+            raise AssertionError(f"({label}) prefill logits {lg.shape}")
+        del lg, pb
+
+    state = engine.init_cache(cfg, batch, FAMILY_CTX, device=dev)
+    fill_state(torch, state, gen, mem=False)
+    if "frames" in extra:
+        frames = torch.randn((batch, extra["frames"], cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mem = model._encode(params, cfg, frames)
+        for i, lp in enumerate(params.layers):
+            k, v = attention.mem_kv(lp.cross, cfg, mem)
+            state.mem_k[i].copy_(k)
+            state.mem_v[i].copy_(v)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        log(f"({label}) encoder over {frames.shape[1]} frames x {batch} "
+            f"requests, then mem_kv into mem_k / mem_v "
+            f"({state.mem_k.numel() * 2 / 1e9:.2f} GB each): {secs:.3f} s")
+        if not bool(torch.isfinite(mem).all()):
+            raise AssertionError(f"({label}) the encoder output is not finite")
+        del frames, mem, k, v
+    w = state.cache_k.shape[2] if state.cache_k is not None else 0
+    kv_rows = batch * min(int(state.cache_len[0]) + 1, w) if w else 0
+    nbytes = step_bytes(cfg, params, state, kv_rows)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    drops = []
+    real_dispatch = moe.dispatch
+
+    def counted(x, eidx, n_experts, cap):
+        buf, pos, keep = real_dispatch(x, eidx, n_experts, cap)
+        drops.append((~keep).sum())
+        return buf, pos, keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moe.dispatch = counted
+    try:
+        window_attention.launches = 0
+        seqs, logits, state, seconds = serve.generate(params, cfg, tok, state,
+                                                      FAMILY_TOKENS)
+        n_launch = window_attention.launches
+    finally:
+        moe.dispatch = real_dispatch
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * sum(seconds[1:]) / (len(seconds) - 1)
+    per_step = (torch.stack(drops).view(FAMILY_TOKENS, -1).sum(1).tolist()
+                if drops else [])
+    log(f"({label}) decode_32k: batch {batch}, {FAMILY_TOKENS} greedy tokens: "
+        f"first step {1e3 * seconds[0]:.2f} ms, then {step_ms:.2f} ms a step "
+        f"(min {1e3 * min(seconds[1:]):.2f}, max {1e3 * max(seconds[1:]):.2f})"
+        f", {1e3 * batch / step_ms:.1f} tokens/s; a step must move "
+        f"{nbytes / 1e9:.2f} GB: bound {bound_ms:.2f} ms "
+        f"({bound_ms / step_ms:.2f} of the step); window_attention "
+        f"launches {n_launch} (expected {b4_per_step} a step); peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    if per_step:
+        log(f"({label}) MoE assignments dropped each step (cap "
+            f"{moe.capacity(cfg, batch)}, {cfg.moe.n_experts} experts, top-"
+            f"{cfg.moe.top_k}, {batch} tokens a layer): {per_step}")
+    log(f"({label}) tokens of request 0: {seqs[0].tolist()}")
+    if n_launch != b4_per_step * FAMILY_TOKENS:
+        raise AssertionError(f"({label}) {n_launch} window_attention "
+                             f"launches, not {b4_per_step} a step")
+    if tuple(seqs.shape) != (batch, FAMILY_TOKENS) or not (
+            logits.shape == (batch, model.vocab_padded(cfg))
+            and bool(torch.isfinite(logits[:, :cfg.vocab]).all())):
+        raise AssertionError(f"({label}) tokens {tuple(seqs.shape)} or "
+                             f"logits {tuple(logits.shape)} wrong or not "
+                             f"finite")
+
+    nxt = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None].int()
+    if label in ("b", "c", "e"):
+        cap = StepCapture()
+        try:
+            logits, state = engine.decode_step(params, cfg, nxt, state)
+        finally:
+            cap.remove()
+        t1 = time.perf_counter()
+        worst, notes = check_family_step(torch, np, cfg, cap.got)
+        log(f"({label}) one more step's layers ({', '.join(sorted(cap.got))})"
+            f" vs float64 on the host, normwise: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in sorted(worst.items()))
+            + f" (limit {LAYER_HOST_TOL}; {time.perf_counter() - t1:.1f} s)")
+        if notes:
+            log(f"({label}) its MoE layer: cap {notes['cap']}, "
+                f"{notes['dropped']} of {notes['assignments']} assignments "
+                f"dropped; experts, positions and kept flags equal the "
+                f"host's dispatch from the router logits")
+        if not max(worst.values()) <= LAYER_HOST_TOL:
+            raise AssertionError(f"({label}) off float64: {worst}")
+        del cap
+        nxt = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None].int()
+
+    box = [nxt, state]
+
+    def one_step(_):
+        lg, st = engine.decode_step(params, cfg, box[0], box[1])
+        box[:] = [torch.argmax(lg[:, :cfg.vocab], dim=-1)[:, None].int(), st]
+    kernels = report_run(torch, f"({label}) decode step", family_layers(),
+                         one_step, other="other (residual adds, casts, host)")
+    attn = [(t, n) for t, name, n in kernels if "window_attention" in name]
+    if kernels:
+        log(f"({label}) window_attention in the profiled step: "
+            f"{sum(n for _, n in attn)} launches, "
+            f"{sum(t for t, _ in attn) / 1e3:.2f} ms of device time")
+    del params, state, box, logits
+    return n_launch
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -4508,7 +5169,11 @@ def main() -> int:
                      ("phase 17 facade and cost model", phase_facade),
                      ("phase 18 distributed", phase_distributed),
                      ("phase 19 fault tolerance", phase_ft),
-                     ("phase 20 online serving", phase_serving)):
+                     ("phase 20 online serving", phase_serving),
+                     ("phase 21 model families, reduced gates",
+                      phase_family_parity),
+                     ("phase 21 model families on the card",
+                      phase_families)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:

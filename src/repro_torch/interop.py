@@ -22,9 +22,15 @@ frozen storage); a split graph also carries the arrays
 
 Parameters: the reference's parameter pytree flattened to numpy arrays
 keyed by path (``embed``, ``final_norm``, ``out``, ``layers.norm1``,
-``layers.mix.wq``, ``layers.ffn.w_gate``, ...; the ``layers.*`` arrays
-keep their stacked leading ``[L, ...]`` axis) becomes the port's
-``Model`` on a device, bit for bit.  bfloat16 arrives as an
+``layers.mix.wq``, ``layers.ffn.router``, ``layers.mix.in_proj``,
+``layers.cross.wq``, ``layers.norm_x``, ``enc_layers.*``, ``enc_norm``,
+``projector.w1``, and the hybrid's ``layers.l<j>.*``; a stack keeps its
+leading axis: ``[L, ...]``, ``[n_enc_layers, ...]``, or ``[n_periods,
+...]`` for the hybrid) becomes the port's ``Model`` on a device, bit
+for bit.  A serving state flattened the same way (``cache_k``,
+``cache_v``, ``cache_len``, ``mamba_state.h``, ``mamba_state.conv``,
+``mem_k``, ``mem_v``; a part the reference keeps as ``{}`` absent)
+becomes the port's ``ServeState``.  bfloat16 arrives as an
 ``ml_dtypes`` array, which this package reads through its raw 16 bits,
 so it never imports ``ml_dtypes``.
 """
@@ -37,6 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import DataGraph, SlicedEll, flat_slots
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.serve.engine import (ServeState, _n_attn_layers,
+                                      _n_mamba_layers)
 
 _BLOCKS = ("nbrs", "nbr_mask", "edge_ids", "is_src")
 
@@ -118,24 +126,38 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _stacks(cfg: ModelConfig) -> dict[str, int]:
+    """Key prefix of each stacked set of layers -> its stacked length."""
+    if cfg.arch_type == "hybrid":
+        return {f"layers.l{j}": cfg.n_layers // cfg.attn_every
+                for j in range(cfg.attn_every)}
+    out = {"layers": cfg.n_layers}
+    if cfg.arch_type == "audio":
+        out["enc_layers"] = cfg.n_enc_layers
+    return out
+
+
 def params_from_arrays(arrays: dict, cfg: ModelConfig, device=None) -> Model:
     """The port's ``Model`` on ``device`` holding the exported reference
-    parameters: ``layers.<name>`` ``[L, ...]`` becomes ``layers.<i>.<name>``.
-    The dtypes are the arrays' (the weights' from ``embed``); a missing,
-    extra or mis-shaped array raises."""
+    parameters: a stacked ``<stack>.<name>`` ``[n, ...]`` becomes
+    ``<stack>.<i>.<name>`` (stacks: ``layers``, ``enc_layers``, the
+    hybrid's ``layers.l<j>``).  The dtypes are the arrays' (the weights'
+    from ``embed``); a missing, extra or mis-shaped array raises."""
     device = resolve_device(device)
     tensors = {k: _tensor(a) for k, a in arrays.items()}
     model = Model(cfg, dtype=tensors["embed"].dtype, device=device)
+    stacks = _stacks(cfg)
     state = {}
     for key, t in tensors.items():
-        if key.startswith("layers."):
-            if t.shape[0] != cfg.n_layers:
-                raise ValueError(f"{key}: {t.shape[0]} layers, the config "
-                                 f"has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{key[len('layers.'):]}"] = t[i]
-        else:
+        stack = next((st for st in stacks if key.startswith(st + ".")), None)
+        if stack is None:
             state[key] = t
+            continue
+        if t.shape[0] != stacks[stack]:
+            raise ValueError(f"{key}: {t.shape[0]} stacked layers, the "
+                             f"config has {stacks[stack]}")
+        for i in range(stacks[stack]):
+            state[f"{stack}.{i}.{key[len(stack) + 1:]}"] = t[i]
     want = model.state_dict()
     if set(state) != set(want):
         raise ValueError(f"parameter names differ: missing "
@@ -148,3 +170,34 @@ def params_from_arrays(arrays: dict, cfg: ModelConfig, device=None) -> Model:
                              f"{want[key].dtype}")
     model.load_state_dict(state)
     return model
+
+
+def serve_state_from_arrays(arrays: dict, cfg: ModelConfig,
+                            device=None) -> ServeState:
+    """The port's ``ServeState`` on ``device`` holding an exported
+    reference state bit for bit.  The parts ``cfg``'s family has must be
+    there and no other; their layer counts must be the config's."""
+    device = resolve_device(device)
+    la, lm = _n_attn_layers(cfg), _n_mamba_layers(cfg)
+    want = {"cache_len": None}
+    if la:
+        want.update(cache_k=la, cache_v=la)
+    if lm:
+        want.update({"mamba_state.h": lm, "mamba_state.conv": lm})
+    if cfg.enc_dec:
+        want.update(mem_k=cfg.n_layers, mem_v=cfg.n_layers)
+    if set(arrays) != set(want):
+        raise ValueError(f"state parts differ: missing "
+                         f"{sorted(set(want) - set(arrays))}, extra "
+                         f"{sorted(set(arrays) - set(want))}")
+    up = {}
+    for key, n in want.items():
+        t = _tensor(arrays[key])
+        if n is not None and t.shape[0] != n:
+            raise ValueError(f"{key}: {t.shape[0]} layers, the config has "
+                             f"{n}")
+        up[key] = t.to(device)
+    ms = ({"h": up["mamba_state.h"], "conv": up["mamba_state.conv"]}
+          if lm else None)
+    return ServeState(up.get("cache_k"), up.get("cache_v"), up["cache_len"],
+                      ms, up.get("mem_k"), up.get("mem_v"))

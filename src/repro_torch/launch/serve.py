@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --batch 4 --context 64 --tokens 16 [--full] [--device cpu]
 
-Runs on the GPU unless ``--device cpu`` is given.  Without ``--full``
-the architecture is its reduced smoke variant (``ModelConfig.reduced``).
-The parameters are random, drawn on the device from seed 0.
+``--arch`` is any of the registered architectures (every family).  Runs
+on the GPU unless ``--device cpu`` is given.  Without ``--full`` the
+architecture is its reduced smoke variant (``ModelConfig.reduced``).
+The parameters are random, drawn on the device from seed 0.  An
+encoder-decoder request decodes against the state's cross-attention
+memory, which stays zeros here, as in the reference's launcher.
 """
 from __future__ import annotations
 

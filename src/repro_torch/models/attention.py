@@ -1,5 +1,7 @@
-"""GQA self-attention of the dense decoder: prefill (full or sliding-window
-causal) and cached decode (``repro.models.attention`` in PyTorch).
+"""GQA attention: self-attention for prefill (full or sliding-window
+causal, or bidirectional in the audio encoder), cross-attention over an
+encoder memory, and cached decode (``repro.models.attention`` in
+PyTorch).
 
 Parameters live in an ``Attention`` module (the reference's
 ``attention.init`` pytree): ``wq``, ``wk``, ``wv`` as ``[d, heads * dh]``
@@ -9,7 +11,9 @@ float32 ``q_norm`` / ``k_norm`` scales where the config has qk_norm.
 Decode takes its attention from the hand-written CUDA kernel
 (``kernels/window_attention``): the new token's K/V go into the ring
 slot first, in place, and the query attends to the cache's valid
-prefix.  Cross-attention (the audio family's) waits for that family.
+prefix.  The decoder's cross-attention at decode (one query against an
+all-valid encoder memory) is the same function with ``kv_len = T``, so
+it takes the kernel too (``cross_attention_decode``).
 """
 from __future__ import annotations
 
@@ -164,6 +168,73 @@ def self_attention(p: Attention, cfg, x: torch.Tensor, positions,
     return o.reshape(b, s, -1) @ p.wo
 
 
+def cross_attention_init(cfg, gen: torch.Generator | None = None,
+                         dtype=torch.bfloat16, device=None) -> Attention:
+    """The cross-attention weights: the same parameters as ``Attention``."""
+    return Attention(cfg, gen, dtype, device)
+
+
+def _cross_q(p: Attention, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The cross-attention query [B,S,H,dh]: no rope, qk_norm on q."""
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+    return q
+
+
+def cross_attention(p: Attention, cfg, x: torch.Tensor, mem_k: torch.Tensor,
+                    mem_v: torch.Tensor, mem_mask: torch.Tensor
+                    ) -> torch.Tensor:
+    """x: [B,S,d]; mem_k/v precomputed [B,T,Hkv,dh]; mem_mask [B,T] bool.
+
+    As the reference: past 2,048 rows on either side the flash path runs
+    with the memory taken as all valid (S and T multiples of its
+    chunks); otherwise a dense softmax masked by ``mem_mask``."""
+    b, s, _ = x.shape
+    q = _cross_q(p, cfg, x)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = mem_k, mem_v
+    if max(s, k.shape[1]) > _FLASH_THRESHOLD:
+        o = flash_attention(q, k, v, causal=False, window=None, n_rep=n_rep)
+        return o.reshape(b, s, -1) @ p.wo
+    if n_rep > 1:
+        k = k.repeat_interleave(n_rep, dim=2)
+        v = v.repeat_interleave(n_rep, dim=2)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    mask = torch.where(mem_mask[:, None, None, :], zero, float("-inf"))
+    sc = torch.einsum("bshd,bthd->bhst", q, k).float() * cfg.dh ** -0.5
+    pr = torch.softmax(sc + mask, dim=-1).to(q.dtype)
+    o = torch.einsum("bhst,bthd->bshd", pr, v)
+    return o.reshape(b, s, -1) @ p.wo
+
+
+def cross_attention_decode(p: Attention, cfg, x: torch.Tensor,
+                           mem_k: torch.Tensor,
+                           mem_v: torch.Tensor) -> torch.Tensor:
+    """One query token a request against its whole memory: x [B,1,d],
+    mem_k/v [B,T,Hkv,dh] (a layer's slice, read in place).  The memory is
+    all valid, as the reference's decode step takes it, so this is the
+    window-attention kernel's function at ``kv_len = T`` (float32 inside,
+    cast to x's dtype before ``wo``).  Returns out [B,1,d]."""
+    b, t = mem_k.shape[:2]
+    q = _cross_q(p, cfg, x)
+    kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
+    o = window_attention(q[:, 0], mem_k, mem_v, kv_len)      # [B,H,dh] f32
+    return _out_proj(p, o.to(x.dtype).reshape(b, 1, -1))
+
+
+def mem_kv(p: Attention, cfg, mem: torch.Tensor):
+    """The cross-attention K/V [B,T,Hkv,dh] of an encoder output
+    [B,T,d]; qk_norm on K, no rope."""
+    b, t, _ = mem.shape
+    k = (mem @ p.wk).reshape(b, t, cfg.n_kv_heads, cfg.dh)
+    v = (mem @ p.wv).reshape(b, t, cfg.n_kv_heads, cfg.dh)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    return k, v
+
+
 # ----------------------------------------------------------------------
 # Decode path: one query token against a KV cache.
 # ----------------------------------------------------------------------
@@ -180,28 +251,51 @@ def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
     return o @ p.wo
 
 
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """The kernel's function over any valid set ``valid`` [B,W] (not only
+    a prefix), in float32: q [B,H,dh], k/v [B,W,Hkv,dh] -> [B,H,dh]."""
+    b, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, hkv, h // hkv, dh)
+    s = torch.einsum("bgrd,bwgd->bgrw", qg, k.float()) * dh ** -0.5
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    o = torch.einsum("bgrw,bwgd->bgrd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(b, h, dh)
+
+
 def decode_attention(p: Attention, cfg, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     cache_len: torch.Tensor):
+                     cache_len: torch.Tensor, slot: torch.Tensor | None = None):
     """x: [B,1,d]; cache_k/v: [B,W,Hkv,dh]; cache_len: [B] int32 tokens
     seen so far (the new token's absolute position).
 
     Insert-then-attend, as the reference: the new token's K/V go into
-    ring slot ``cache_len % W`` first -- in place, so cache_k/v are
-    updated for the caller -- and the query attends to the cache alone.
-    The reference's valid set ``t < min(cache_len + 1, W) | t == slot``
+    ring slot ``cache_len % W`` (or ``slot`` [B], where given) first --
+    in place, so cache_k/v are updated for the caller -- and the query
+    attends to the cache alone, over the reference's valid set
+    ``t < min(cache_len + 1, W) | t == slot``.  Without ``slot`` that set
     is always the prefix ``t < kv_len``, ``kv_len = min(cache_len + 1,
     W)``, which is the kernel's contract; kv_len is computed on the
-    device.  The kernel's float32 output is cast to x's dtype before
-    ``wo``.  Returns out [B,1,d].
+    device.  A given slot past that prefix makes the set a prefix plus
+    one row, which the kernel does not take: that call runs the same
+    function as a masked softmax (deciding which waits for the device).
+    The float32 attention is cast to x's dtype before ``wo``.  Returns
+    out [B,1,d].
     """
     b = x.shape[0]
     pos = cache_len.long()[:, None]                       # position = len
     q, k, v = _qkv(p, cfg, x, pos)
     w = cache_k.shape[1]
-    slot = cache_len.long() % w
+    given = slot is not None
+    slot = slot.long() if given else cache_len.long() % w
     _ring_insert(cache_k, k, slot)
     _ring_insert(cache_v, v, slot)
     kv_len = torch.clamp(cache_len + 1, max=w).to(torch.int32)
-    o = window_attention(q[:, 0], cache_k, cache_v, kv_len)   # [B,H,dh] f32
+    if given and not bool((slot < kv_len).all()):
+        t = torch.arange(w, device=x.device)[None, :]
+        valid = (t < kv_len[:, None]) | (t == slot[:, None])
+        o = _masked_attention(q[:, 0], cache_k, cache_v, valid)
+    else:
+        o = window_attention(q[:, 0], cache_k, cache_v, kv_len)  # f32
     return _out_proj(p, o.to(x.dtype).reshape(b, 1, -1))

@@ -1,0 +1,167 @@
+"""Mamba-1 selective SSM block (falcon-mamba, jamba's Mamba layers):
+``repro.models.mamba`` in PyTorch.
+
+Prefill runs the diagonal recurrence ``h_t = a_t * h_{t-1} + b_t`` in
+chunks of 256 steps, carrying the ``[B, d_inner, d_state]`` state from
+chunk to chunk.  Inside a chunk the pairs ``(a, b)`` compose
+associatively, ``(a, b) o (a', b') = (a a', a' b + b')``, and a
+Hillis-Steele scan applies that in log2(chunk) rounds of whole-tensor
+ops (8 at 256): the counterpart of the reference's
+``lax.associative_scan``, whose tree sums in another order.  The
+``[B, chunk, d_inner, d_state]`` tensors are built inside the chunk
+loop, so peak memory is one chunk's.
+
+Decode is the O(1) recurrent step; it updates the state it is given in
+place (``h`` float32, and the conv tail, which is bfloat16 whatever the
+model's dtype, as in the reference).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import linear_init
+
+_CHUNK = 256
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dt_rank(cfg) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+class Mamba(nn.Module):
+    """One Mamba layer's weights, named and drawn as the reference's
+    ``mamba.init``: ``in_proj [d, 2 di]``, ``conv_w [d_conv, di]`` (a
+    float32 normal times 0.2, then cast), ``conv_b``, ``x_proj [di, dtr +
+    2 ds]``, float32 ``dt_proj [dtr, di]``, ``dt_bias = log(expm1(0.01))``,
+    ``A_log = log([1..ds])`` and ``D = 1``, and ``out_proj [di, d]``.
+    Without ``gen`` the weights are left uninitialised on ``device``."""
+
+    def __init__(self, cfg, gen: torch.Generator | None = None,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d, di, ds, dc = cfg.d_model, cfg.d_inner, cfg.ssm.d_state, \
+            cfg.ssm.d_conv
+        dtr = dt_rank(cfg)
+        dev = gen.device if gen is not None else device
+
+        def lin(d_in, d_out, dt=dtype):
+            if gen is None:
+                return _param(torch.empty((d_in, d_out), dtype=dt,
+                                          device=dev))
+            return _param(linear_init(gen, d_in, d_out, dt))
+        f32 = torch.float32
+        self.in_proj = lin(d, 2 * di)
+        if gen is None:
+            self.conv_w = _param(torch.empty((dc, di), dtype=dtype,
+                                             device=dev))
+        else:
+            w = torch.randn((dc, di), generator=gen, device=dev, dtype=f32)
+            self.conv_w = _param((w * 0.2).to(dtype))
+        self.conv_b = _param(torch.zeros((di,), dtype=dtype, device=dev))
+        self.x_proj = lin(di, dtr + 2 * ds)
+        self.dt_proj = lin(dtr, di, f32)
+        bias = torch.log(torch.expm1(torch.tensor(0.01, dtype=f32)))
+        self.dt_bias = _param(torch.zeros((di,), dtype=f32, device=dev)
+                              + bias.to(dev))
+        a = torch.arange(1, ds + 1, dtype=f32, device=dev)[None].repeat(di, 1)
+        self.A_log = _param(torch.log(a))
+        self.D = _param(torch.ones((di,), dtype=f32, device=dev))
+        self.out_proj = lin(di, d)
+
+
+def _selective(p: Mamba, cfg, x: torch.Tensor):
+    """The selective parameters of the conv output x [..., di]:
+    ``(dt [..., di], B [..., ds], C [..., ds])`` in float32."""
+    ds, dtr = cfg.ssm.d_state, dt_rank(cfg)
+    proj = x @ p.x_proj
+    dt = F.softplus(proj[..., :dtr].float() @ p.dt_proj + p.dt_bias)
+    return (dt, proj[..., dtr:dtr + ds].float(),
+            proj[..., dtr + ds:].float())
+
+
+def _ssm_inputs(p: Mamba, cfg, xz: torch.Tensor):
+    """The common front half: the causal depthwise conv over time, silu,
+    and the selective parameters.  xz: [B,S,2 di]."""
+    di, dc = cfg.d_inner, cfg.ssm.d_conv
+    x, z = xz[..., :di], xz[..., di:]
+    s = x.shape[1]
+    pads = F.pad(x, (0, 0, dc - 1, 0))
+    x = sum(pads[:, i:i + s] * p.conv_w[i] for i in range(dc)) + p.conv_b
+    x = F.silu(x)
+    return (x, z) + _selective(p, cfg, x)
+
+
+def scan_chunk(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of ``(a, b)`` along dim 1 under ``(a, b) o (a', b') =
+    (a a', a' b + b')``, Hillis-Steele, in place: after the round at
+    offset ``o`` each step holds the composition of the ``2 o`` steps
+    ending at it.  Returns ``(a, b)``: the products of a, and the states
+    from a zero start."""
+    c = a.shape[1]
+    for r in range(math.ceil(math.log2(c)) if c > 1 else 0):
+        o = 1 << r
+        b[:, o:] += b[:, :-o] * a[:, o:]
+        a[:, o:] = a[:, :-o] * a[:, o:]
+    return a, b
+
+
+def apply_train(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d]; the chunked selective scan."""
+    b, s, _ = x.shape
+    di, ds = cfg.d_inner, cfg.ssm.d_state
+    xc, z, dt, bmat, cmat = _ssm_inputs(p, cfg, x @ p.in_proj)
+    a = -torch.exp(p.A_log)                                  # [di, ds]
+    xf = xc.float()
+    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, s, _CHUNK):
+        sl = slice(c0, c0 + _CHUNK)
+        dtk = dt[:, sl]
+        da = torch.exp(dtk[..., None] * a)                   # [B,c,di,ds]
+        dbx = (dtk * xf[:, sl])[..., None] * bmat[:, sl, None, :]
+        aa, hh = scan_chunk(da, dbx)
+        hh = hh + aa * h[:, None]                            # the carry
+        ys.append(torch.einsum("bcdn,bcn->bcd", hh, cmat[:, sl]))
+        h = hh[:, -1]
+    y = torch.cat(ys, dim=1) + xf * p.D
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p.out_proj
+
+
+def init_decode_state(cfg, batch: int, device=None) -> dict:
+    """``{"h": float32 [B, di, ds], "conv": bfloat16 [B, d_conv - 1, di]}``,
+    zeros."""
+    di = cfg.d_inner
+    return {"h": torch.zeros((batch, di, cfg.ssm.d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di),
+                                dtype=torch.bfloat16, device=device)}
+
+
+def apply_decode(p: Mamba, cfg, x: torch.Tensor,
+                 state: dict) -> torch.Tensor:
+    """x: [B, 1, d]; the O(1) recurrent step.  ``state`` (``h`` and
+    ``conv``, e.g. one layer's rows of the serving state) is updated in
+    place.  Returns y [B, 1, d]."""
+    di, dc = cfg.d_inner, cfg.ssm.d_conv
+    xz = x @ p.in_proj                                       # [B,1,2di]
+    xr, z = xz[..., :di], xz[..., di:]
+    hist = torch.cat([state["conv"].to(xr.dtype), xr], dim=1)  # [B,dc,di]
+    xc = sum(hist[:, i] * p.conv_w[i] for i in range(dc)) + p.conv_b
+    xc = F.silu(xc)                                          # [B,di]
+    dt, bm, cm = _selective(p, cfg, xc)
+    da = torch.exp(dt[..., None] * -torch.exp(p.A_log))      # [B,di,ds]
+    h = state["h"]
+    h.mul_(da).add_((dt * xc.float())[..., None] * bm[:, None, :])
+    y = torch.einsum("bdn,bn->bd", h, cm) + xc.float() * p.D
+    y = (y * F.silu(z[:, 0].float())).to(x.dtype)
+    state["conv"].copy_(hist[:, 1:])
+    return (y @ p.out_proj)[:, None]

@@ -1,15 +1,23 @@
-"""The dense decoder family (``repro.models.model`` in PyTorch): the
-parameters as ``nn.Module``s, one ``Layer`` per decoder layer in a
-``ModuleList``, and ``prefill``, the inference forward that returns the
-last token's logits.
+"""Every model family of the reference (``repro.models.model`` in
+PyTorch): the parameters as ``nn.Module`` trees, and ``prefill``, the
+inference forward that returns the last token's logits.
+
+Families:
+  dense / moe   uniform decoder layers (attention + MLP or MoE)
+  ssm           uniform Mamba-1 layers (no attention, no MLP)
+  hybrid        periods of ``attn_every`` layers, attention at position
+                0 and Mamba elsewhere, MoE where ``cfg.is_moe_layer(j)``;
+                one stack a position (``layers.l<j>``, one layer a period)
+  vlm           the dense decoder over [projected patch embeddings;
+                token embeddings] (the vision frontend is a stub)
+  audio         a bidirectional encoder over frame embeddings (stub
+                frontend) and a causal decoder with cross-attention
 
 The reference stacks the layers' parameters on a leading axis and scans
-over them; here the layers are a Python loop over modules, which is the
-same computation.  The reference's sharding hints (``_hint``,
-``shardctx.residual_hint``) are no-ops on one device and are left out.
-Only ``arch_type == "dense"`` is ported; the other families raise
-``NotImplementedError`` naming their ROADMAP item, and the training
-forward and its loss wait for the training slice.
+over them; here each stack is a ``ModuleList`` and the scan a Python
+loop, which is the same computation.  The reference's sharding hints
+are no-ops on one device and are left out.  The training forward and
+its loss wait for the training slice.
 """
 from __future__ import annotations
 
@@ -18,27 +26,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (act_fn, embed_init, linear_init,
                                        rmsnorm, rmsnorm_init)
-
-_NOT_PORTED = {
-    "moe": "the MoE family (ROADMAP A12: models/moe.py)",
-    "ssm": "the SSM family (ROADMAP A12: models/mamba.py)",
-    "hybrid": "the hybrid attention/SSM family (ROADMAP A12)",
-    "vlm": "the vision-language family (ROADMAP A12)",
-    "audio": "the encoder-decoder audio family (ROADMAP A12)",
-}
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of the one family the port runs."""
-    if cfg.arch_type != "dense":
-        what = _NOT_PORTED.get(cfg.arch_type)
-        if what is None:
-            raise ValueError(cfg.arch_type)
-        raise NotImplementedError(f"{cfg.name}: {what} is not ported yet; "
-                                  "the port runs the dense family")
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -72,30 +62,52 @@ def _mlp_apply(p: MLP, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 class Layer(nn.Module):
-    """One decoder layer (the reference's ``init_layer`` with attention and
-    a dense MLP): ``norm1``, ``mix``, and ``norm2`` / ``ffn`` where the
-    config has an MLP."""
+    """One layer (the reference's ``init_layer``): ``norm1`` and ``mix``
+    (``Attention``, or ``Mamba`` where ``attn`` is false); with ``cross``
+    (the audio decoder) ``norm_x`` and the cross-attention ``cross``; and
+    ``norm2`` / ``ffn``, a ``MoE`` where ``moe_layer``, else an ``MLP``
+    where the config has one."""
 
-    def __init__(self, cfg, gen=None, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg, attn: bool = True, moe_layer: bool = False,
+                 cross: bool = False, gen=None, dtype=torch.bfloat16,
+                 device=None):
         super().__init__()
         dev = gen.device if gen is not None else device
         self.norm1 = _param(rmsnorm_init(cfg.d_model, dev))
-        self.mix = attention.Attention(cfg, gen, dtype, dev)
+        self.mix = (attention.Attention(cfg, gen, dtype, dev) if attn
+                    else mamba.Mamba(cfg, gen, dtype, dev))
+        self.norm_x = self.cross = None
+        if cross:
+            self.norm_x = _param(rmsnorm_init(cfg.d_model, dev))
+            self.cross = attention.cross_attention_init(cfg, gen, dtype, dev)
         self.norm2 = self.ffn = None
-        if cfg.d_ff:
+        if moe_layer or cfg.d_ff:
             self.norm2 = _param(rmsnorm_init(cfg.d_model, dev))
-            self.ffn = MLP(cfg, gen, dtype, dev)
+            self.ffn = (moe.MoE(cfg, gen, dtype, dev) if moe_layer
+                        else MLP(cfg, gen, dtype, dev))
+
+
+class Projector(nn.Module):
+    """The vlm's patch projector: ``gelu(patches @ w1) @ w2``."""
+
+    def __init__(self, cfg, gen=None, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.w1 = _linear(gen, cfg.d_model, cfg.d_model, dtype, device)
+        self.w2 = _linear(gen, cfg.d_model, cfg.d_model, dtype, device)
 
 
 class Model(nn.Module):
-    """The parameters of a dense decoder (the reference's ``init_params``
-    pytree): ``embed`` and, unless tied, ``out`` ``[vocab_padded, d]``,
-    ``final_norm``, and ``layers``."""
+    """A model's parameters (the reference's ``init_params`` pytree):
+    ``embed`` and, unless tied, ``out`` ``[vocab_padded, d]``,
+    ``final_norm``, and ``layers``: a ``ModuleList`` of ``Layer``s, or
+    for the hybrid a ``ModuleDict`` of one ``ModuleList`` a period
+    position (``l0`` ... ``l<period-1>``, ``n_layers / period`` layers
+    each).  The audio family adds ``enc_layers`` and ``enc_norm``, the
+    vlm ``projector``.  An unknown ``arch_type`` raises ``ValueError``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        check_family(cfg)
         dev = gen.device if gen is not None else device
         vp = vocab_padded(cfg)
 
@@ -104,11 +116,38 @@ class Model(nn.Module):
                 return _param(embed_init(gen, vp, cfg.d_model, dtype))
             return _param(torch.empty((vp, cfg.d_model), dtype=dtype,
                                       device=dev))
+
+        def stack(n, attn, moe_layer, cross=False):
+            return nn.ModuleList(Layer(cfg, attn, moe_layer, cross, gen,
+                                       dtype, dev) for _ in range(n))
         self.embed = embed()
         self.final_norm = _param(rmsnorm_init(cfg.d_model, dev))
         self.out = None if cfg.tie_embeddings else embed()
-        self.layers = nn.ModuleList(Layer(cfg, gen, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+        kind = cfg.arch_type
+        if kind in ("dense", "vlm", "moe", "ssm"):
+            self.layers = stack(cfg.n_layers, kind != "ssm", kind == "moe")
+        elif kind == "hybrid":
+            period = cfg.attn_every
+            self.layers = nn.ModuleDict({
+                f"l{j}": stack(cfg.n_layers // period, j % period == 0,
+                               cfg.is_moe_layer(j))
+                for j in range(period)})
+        elif kind == "audio":
+            self.enc_layers = stack(cfg.n_enc_layers, True, False)
+            self.enc_norm = _param(rmsnorm_init(cfg.d_model, dev))
+            self.layers = stack(cfg.n_layers, True, False, cross=True)
+        else:
+            raise ValueError(cfg.arch_type)
+        if kind == "vlm":
+            self.projector = Projector(cfg, gen, dtype, dev)
+
+
+def hybrid_layers(params: Model, cfg) -> list[tuple[int, int, Layer]]:
+    """The hybrid's layers in depth order as ``(period, position,
+    layer)``: layer ``period * attn_every + position``."""
+    return [(p, j, params.layers[f"l{j}"][p])
+            for p in range(cfg.n_layers // cfg.attn_every)
+            for j in range(cfg.attn_every)]
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -126,20 +165,54 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 # ----------------------------------------------------------------------
 
 def _layer_apply(p: Layer, cfg, x: torch.Tensor, positions,
-                 causal: bool = True) -> torch.Tensor:
+                 causal: bool = True, mem: torch.Tensor | None = None):
+    """One layer over [B,S,d]; ``mem`` [B,T,d], the encoder output, for
+    the audio decoder's cross-attention (all of it valid).  Returns
+    ``(x, aux)``, aux the MoE's load-balance loss (0 without one)."""
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
-    x = x + attention.self_attention(p.mix, cfg, h, positions, causal=causal)
+    if isinstance(p.mix, attention.Attention):
+        x = x + attention.self_attention(p.mix, cfg, h, positions,
+                                         causal=causal)
+    else:
+        x = x + mamba.apply_train(p.mix, cfg, h)
+    if mem is not None:
+        hx = rmsnorm(x, p.norm_x, cfg.norm_eps)
+        mk, mv = attention.mem_kv(p.cross, cfg, mem)
+        mmask = torch.ones(mem.shape[:2], dtype=torch.bool, device=x.device)
+        x = x + attention.cross_attention(p.cross, cfg, hx, mk, mv, mmask)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if p.ffn is not None:
         h2 = rmsnorm(x, p.norm2, cfg.norm_eps)
-        x = x + _mlp_apply(p.ffn, cfg, h2)
-    return x
+        if isinstance(p.ffn, moe.MoE):
+            y, aux = moe.apply(p.ffn, cfg, h2)
+        else:
+            y = _mlp_apply(p.ffn, cfg, h2)
+        x = x + y
+    return x, aux
 
 
 def _run_stack(layers: nn.ModuleList, cfg, x: torch.Tensor, positions,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, mem: torch.Tensor | None = None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        x = _layer_apply(lp, cfg, x, positions, causal)
-    return x
+        x, a = _layer_apply(lp, cfg, x, positions, causal, mem)
+        aux = aux + a
+    return x, aux
+
+
+def _run_hybrid(params: Model, cfg, x: torch.Tensor, positions):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, _, lp in hybrid_layers(params, cfg):
+        x, a = _layer_apply(lp, cfg, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def _trunk(params: Model, cfg, x: torch.Tensor, positions,
+           mem: torch.Tensor | None = None):
+    if cfg.arch_type == "hybrid":
+        return _run_hybrid(params, cfg, x, positions)
+    return _run_stack(params.layers, cfg, x, positions, causal=True, mem=mem)
 
 
 def _logits(params: Model, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -158,14 +231,41 @@ def _embed_tokens(params: Model, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens.long()]
 
 
+def _encode(params: Model, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The audio encoder: bidirectional self-attention over the frames
+    [B,T,d], then ``enc_norm``.  Frames in bfloat16 meet a float32
+    model's weights in float32 (the reference's scan refuses that
+    model's prefill: its carry would change dtype)."""
+    frames = frames.to(torch.promote_types(frames.dtype,
+                                           params.embed.dtype))
+    pos = torch.arange(frames.shape[1], device=frames.device)[None]
+    x, _ = _run_stack(params.enc_layers, cfg, frames, pos, causal=False)
+    return rmsnorm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _project_patches(params: Model, patches: torch.Tensor) -> torch.Tensor:
+    """The vlm projector over patch embeddings taken in bfloat16 (as the
+    reference), promoted to the weights' dtype."""
+    pr = params.projector
+    x = patches.to(torch.bfloat16).to(torch.promote_types(torch.bfloat16,
+                                                          pr.w1.dtype))
+    return act_fn("gelu")(x @ pr.w1) @ pr.w2
+
+
 @torch.no_grad()
 def prefill(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Inference prefill: the forward without a loss; returns the last
-    token's logits [B, vocab_padded].  ``batch["tokens"]``: [B, S] on the
-    parameters' device."""
-    check_family(cfg)
+    token's logits [B, vocab_padded].  ``batch`` holds ``tokens`` [B, S],
+    plus ``frames`` [B, T, d] (audio) or ``patches`` [B, P, d] (vlm), on
+    the parameters' device; frames and patches are taken in bfloat16, as
+    the reference takes them."""
     x = _embed_tokens(params, cfg, batch["tokens"])
+    mem = None
+    if cfg.arch_type == "audio":
+        mem = _encode(params, cfg, batch["frames"].to(torch.bfloat16))
+    elif cfg.arch_type == "vlm":
+        x = torch.cat([_project_patches(params, batch["patches"]), x], dim=1)
     pos = torch.arange(x.shape[1], device=x.device)[None]
-    x = _run_stack(params.layers, cfg, x, pos)
+    x, _ = _trunk(params, cfg, x, pos, mem=mem)
     x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0]

@@ -674,6 +674,83 @@ def test_gpu_decode_equals_cpu_decode(cuda, monkeypatch):
                                atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,dh", [(64, 4, 128), (64, 8, 128)])
+def test_window_attention_at_the_moe_and_hybrid_groups(cuda, h, hkv, dh):
+    """qwen3-moe's 64/4 heads (n_rep 16: two blocks of 8 query heads a
+    KV head) and jamba's 64/8 (n_rep 8), bf16 and float32, ragged kv_len
+    with 1 and W among them."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, kvl = _attn_inputs(3, h, hkv, 4096, dh, dtype, cuda,
+                                    seed=h + hkv)
+        got = wa.window_attention(q, k, v, kvl)
+        want = decode_window_attention_ref(q, k, v, kvl)
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_window_attention_over_a_cross_attention_memory_slice(cuda):
+    """seamless's cross-attention at decode: 16/16 heads of 64 over the
+    whole memory (kv_len = W = T = 32,768), one layer's slice of the
+    stacked ``[L, B, T, Hkv, dh]`` memory, read in place."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    mem = torch.randn((2, 2, 2, 32768, 16, 64), generator=gen).to(
+        torch.bfloat16).to(cuda)                  # [K/V, L, B, T, H, dh]
+    q = torch.randn((2, 16, 64), generator=gen).to(cuda)
+    kvl = torch.full((2,), 32768, dtype=torch.int32, device=cuda)
+    got = wa.window_attention(q, mem[0, 1], mem[1, 1], kvl)
+    want = decode_window_attention_ref(q, mem[0, 1], mem[1, 1], kvl)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b",
+                                  "falcon-mamba-7b", "jamba-1.5-large-398b",
+                                  "llava-next-34b", "seamless-m4t-medium"])
+def test_gpu_family_decode_step_equals_cpu(cuda, monkeypatch, arch):
+    """One reduced decode step of each family, float32 parameters, TF32
+    off, from the same random state (caches, Mamba states, memory): the
+    GPU's logits and state within 1e-4 of the CPU's, the GPU's
+    attention through the kernel (one launch a self-attention layer and
+    one a cross-attention layer)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.get(arch).reduced()
+    params = model.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    gparams = model.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu").to(cuda)
+    cst = engine.init_cache(cfg, 3, 96, dtype=torch.float32, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    parts = [cst.cache_k, cst.cache_v, cst.mem_k, cst.mem_v] + (
+        list(cst.mamba_state.values()) if cst.mamba_state else [])
+    for t in parts:
+        if t is not None:
+            t.copy_(torch.randn(t.shape, generator=gen))
+    to = lambda t: None if t is None else t.to(cuda)
+    gst = dataclasses.replace(
+        cst, cache_k=to(cst.cache_k), cache_v=to(cst.cache_v),
+        cache_len=to(cst.cache_len), mem_k=to(cst.mem_k),
+        mem_v=to(cst.mem_v),
+        mamba_state=cst.mamba_state and {k: to(v) for k, v in
+                                         cst.mamba_state.items()})
+    tok = torch.tensor([[3], [77], [cfg.vocab - 1]], dtype=torch.int32)
+    before = wa.window_attention.launches
+    cl, cst = engine.decode_step(params, cfg, tok, cst)
+    gl, gst = engine.decode_step(gparams, cfg, tok.to(cuda), gst)
+    torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    assert wa.window_attention.launches == before + n_attn + (
+        cfg.n_layers if cfg.enc_dec else 0)
+    if cst.mamba_state is not None:
+        torch.testing.assert_close(gst.mamba_state["h"].cpu(),
+                                   cst.mamba_state["h"], rtol=1e-4,
+                                   atol=1e-4)
+
+
 # ----------------------------------------------------------------------
 # The schedulers slice: window launches, CC / PageRank / CoEM on the card
 # ----------------------------------------------------------------------

@@ -134,17 +134,6 @@ def test_init_params_draws_the_reference_distributions():
                zip(model.state_dict().values(), again.state_dict().values()))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "falcon-mamba-7b",
-                                  "jamba-1.5-large-398b", "llava-next-34b",
-                                  "seamless-m4t-medium"])
-def test_other_families_raise(arch):
-    cfg = tconfigs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TS.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_cache_width_matches_reference():
     for name in configs.ARCHS:
         for seq in (64, 32_768, 524_288):

@@ -61,3 +61,18 @@ def reference_param_arrays(params) -> dict:
     flat, _ = jax.tree_util.tree_flatten_with_path(params)
     return {".".join(str(k.key) for k in path): np.asarray(leaf)
             for path, leaf in flat}
+
+
+def reference_state_arrays(state) -> dict:
+    """A reference ``ServeState`` as the flat numpy arrays
+    ``repro_torch.interop.serve_state_from_arrays`` reads: ``cache_k``,
+    ``cache_v``, ``cache_len``, ``mamba_state.<name>``, ``mem_k``,
+    ``mem_v``; the parts the reference keeps as ``{}`` are left out."""
+    out = {"cache_len": np.asarray(state.cache_len)}
+    for name in ("cache_k", "cache_v", "mem_k", "mem_v"):
+        part = getattr(state, name)
+        if not isinstance(part, dict):
+            out[name] = np.asarray(part)
+    out.update({f"mamba_state.{k}": np.asarray(v)
+                for k, v in state.mamba_state.items()})
+    return out
