@@ -266,7 +266,32 @@ Phases (any failure exits non-zero and prints no result):
                  float64 on the host, normwise, and the MoE's experts,
                  positions and kept flags against the host's dispatch
                  from the card's router logits, exactly;
-22. report     — a ``{"kernels": [...]}`` line, then the contract line
+22. training   — first, at each architecture's reduced config in float32
+                 with TF32 off: the loss and every parameter's gradient
+                 on the GPU against the CPU (loss within 1e-5 relative,
+                 each gradient normwise within 1e-4), remat on against
+                 off on the GPU (the largest difference), and three
+                 ``make_train_step`` steps GPU against CPU (losses within
+                 1e-5, each parameter's update normwise within 1e-3).
+                 Then in bf16 with float32 moments through
+                 ``trainer.train``: (b) qwen3-4b at full width, 4 of 36
+                 layers, batch 2 x 4,096 (the flash path), 8 steps with a
+                 checkpoint; (c) phi3.5-moe at 2 of 32 layers and
+                 falcon-mamba-7b at 2 of 64, 1 x 4,096, 4 steps, MoE
+                 drops counted: ms a step (the median of steps 2 on),
+                 tokens/s, peak memory, one step split by CUDA events
+                 into forward, loss, backward and optimizer, one step's
+                 idle share under the profiler, the losses, gradient
+                 norms and lrs, the model FLOPs (6 N T + 12 L S^2 H dh
+                 B) and their share of the dense bf16 peak; every loss
+                 and norm finite and the last loss below the first.
+                 Then (b)'s checkpoint (the reference's keys and
+                 shapes) restored into a fresh model: 192 tokens
+                 teacher-forced through decode at decode_32k against
+                 ``prefill`` within 3e-2 * (1 + |prefill|), and 16
+                 greedy tokens, window_attention's launches set to 0
+                 just before and read just after (4 a step);
+23. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -282,6 +307,7 @@ from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+H100_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores, data sheet
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 FULL_N = 2 ** 21
 EPS = 1e-4
@@ -5084,6 +5110,388 @@ def family_run(torch, ctx, label, arch, changes, batch, b4_per_step, extra):
     return n_launch
 
 
+# ----------------------------------------------------------------------
+# Phase 22: training (the forward and its loss, AdamW, the trainer)
+# ----------------------------------------------------------------------
+
+TRAIN_LOSS_TOL = 1e-5          # GPU vs CPU, float32, TF32 off: relative
+TRAIN_GRAD_TOL = 1e-4          # each gradient, normwise
+TRAIN_UPDATE_TOL = 1e-3        # each parameter's update, normwise
+TRAIN_GATE_STEPS = 3
+# (label, arch, config changes, batch, sequence, trainer steps): full
+# width at a cut depth, bf16 parameters and float32 moments
+TRAIN_RUNS = (
+    ("b", "qwen3-4b", {"n_layers": 4}, 2, 4096, 8),
+    ("c1", "phi3.5-moe-42b-a6.6b", {"n_layers": 2}, 1, 4096, 4),
+    ("c2", "falcon-mamba-7b", {"n_layers": 2}, 1, 4096, 4),
+)
+SERVE_PROMPT = 192             # (b)'s trained model: teacher-forced tokens
+SERVE_BATCH = 2
+
+
+def train_opt(steps):
+    """The launcher's optimizer for a run of ``steps``."""
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=1e-3, warmup_steps=max(steps // 10, 1),
+                             total_steps=steps)
+
+
+def loss_and_grads(torch, model, cfg, params, batch, remat=True):
+    """The loss and every parameter's gradient (by name) of
+    ``model.forward``."""
+    named = list(params.named_parameters())
+    with model.trainable(params):
+        loss, _ = model.forward(params, cfg, batch, remat=remat)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True, materialize_grads=True)
+    return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+
+
+def normwise(torch, got, want):
+    """``|got - want| / |want|`` in float64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    n = float(want.norm())
+    return float((got - want).norm() / n) if n > 0 else float(got.norm())
+
+
+def phase_train_parity(torch, ctx):
+    """(a) Every architecture's reduced config in float32, TF32 off: the
+    loss and each gradient on the GPU against the CPU, ``remat`` on
+    against off on the GPU, and three train steps GPU against CPU."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step, param_dict
+    dev = ctx["dev"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst = {"loss": 0.0, "grad": 0.0, "remat": 0.0, "step loss": 0.0,
+                 "update": 0.0}
+        for arch in configs.ARCHS:
+            cfg = configs.get(arch).reduced()
+            seq = 16 + (cfg.n_frontend_tokens if cfg.arch_type == "vlm"
+                        else 0)
+            cpu = model.init_params(cfg, seed=0, dtype=torch.float32,
+                                    device="cpu")
+            gpu = model.Model(cfg, dtype=torch.float32, device=dev)
+            gpu.load_state_dict(cpu.state_dict())
+            cb = pipeline.make_batch(cfg, 2, seq, seed=0, device="cpu")
+            gb = {k: v.to(dev) for k, v in cb.items()}
+            cl, cg = loss_and_grads(torch, model, cfg, cpu, cb)
+            gl, gg = loss_and_grads(torch, model, cfg, gpu, gb)
+            dl = abs(float(gl) - float(cl)) / abs(float(cl))
+            dg = max((normwise(torch, gg[k], cg[k]), k) for k in cg)
+            ol, og = loss_and_grads(torch, model, cfg, gpu, gb, remat=False)
+            same = bool(ol == gl) and all(torch.equal(og[k], gg[k])
+                                          for k in gg)
+            dr = max([abs(float(ol) - float(gl))]
+                     + [float((og[k] - gg[k]).abs().max()) for k in gg])
+            del cg, gg, og
+            opt = train_opt(TRAIN_GATE_STEPS)
+            steps = [make_train_step(cfg, opt) for _ in range(2)]
+            states = [adamw.init(param_dict(m)) for m in (cpu, gpu)]
+            ds, du = 0.0, (0.0, "")
+            for i in range(TRAIN_GATE_STEPS):
+                b = pipeline.make_batch(cfg, 2, seq, seed=100003 + i,
+                                        device="cpu")
+                before = [{n: p.detach().clone() for n, p in
+                           m.named_parameters()} for m in (cpu, gpu)]
+                _, states[0], cm = steps[0](cpu, states[0], b)
+                _, states[1], gm = steps[1](
+                    gpu, states[1], {k: v.to(dev) for k, v in b.items()})
+                ds = max(ds, abs(float(gm["loss"]) - float(cm["loss"]))
+                         / abs(float(cm["loss"])))
+                gp = dict(gpu.named_parameters())
+                for n, p in cpu.named_parameters():
+                    du = max(du, (normwise(torch, gp[n].detach()
+                                           - before[1][n],
+                                           p.detach() - before[0][n]), n))
+            log(f"  {arch} reduced ({cfg.arch_type}), float32: loss "
+                f"{float(gl):.6f} GPU vs CPU {dl:.1e}, worst gradient "
+                f"{dg[1]} {dg[0]:.2e}; remat on vs off "
+                + ("bitwise" if same else f"max |diff| {dr:.2e}")
+                + f"; {TRAIN_GATE_STEPS} train steps: loss {ds:.1e}, worst "
+                f"update {du[1]} {du[0]:.2e}")
+            for key, v in (("loss", dl), ("grad", dg[0]), ("remat", dr),
+                           ("step loss", ds), ("update", du[0])):
+                worst[key] = max(worst[key], v)
+            if not (dl <= TRAIN_LOSS_TOL and dg[0] <= TRAIN_GRAD_TOL
+                    and ds <= TRAIN_LOSS_TOL and du[0] <= TRAIN_UPDATE_TOL):
+                raise AssertionError(f"{arch}: training on the GPU off the "
+                                     f"CPU's: loss {dl}, {dg}, steps {ds}, "
+                                     f"{du}")
+        log(f"training GPU vs CPU, 10 architectures: worst loss {worst['loss']:.1e}"
+            f", gradient {worst['grad']:.2e} (limits {TRAIN_LOSS_TOL}, "
+            f"{TRAIN_GRAD_TOL} normwise); remat on vs off max |diff| "
+            f"{worst['remat']:.2e}; steps: loss {worst['step loss']:.1e}, "
+            f"update {worst['update']:.2e} (limit {TRAIN_UPDATE_TOL})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def matmul_params(params, cfg):
+    """Parameters a token's forward multiplies by: every weight matrix
+    but the input embedding's gathered rows (unless tied: it is the
+    output too), the Mamba block's elementwise ``A_log`` and ``conv_w``
+    left out, and only ``top_k`` of a MoE layer's ``n_experts``."""
+    n = 0.0
+    for name, p in params.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if p.dim() < 2 or leaf in ("A_log", "conv_w") or (
+                name == "embed" and params.out is not None):
+            continue
+        if cfg.moe is not None and ".ffn.w_" in name:
+            n += p.numel() * cfg.moe.top_k / cfg.moe.n_experts
+        else:
+            n += p.numel()
+    return n
+
+
+def model_flops(params, cfg, batch, seq):
+    """Model FLOPs of one training step: ``6 N T`` over T = B S tokens
+    (forward 2, backward 4; the recomputation under remat not counted)
+    plus the attention's ``12 L S^2 H dh B`` (QK^T and PV over the full
+    S^2, as the eager loop computes every tile)."""
+    n_attn = sum(1 for i in range(cfg.n_layers) if cfg.is_attn_layer(i))
+    return (6 * matmul_params(params, cfg) * batch * seq
+            + 12 * n_attn * seq * seq * cfg.n_heads * cfg.dh * batch)
+
+
+def phase_train(torch, ctx):
+    """(b) qwen3-4b and (c) phi3.5-moe and falcon-mamba-7b trained at full
+    width through ``trainer.train``; then (b)'s checkpoint restored and
+    served through B4."""
+    import tempfile
+    counts = ctx.setdefault("launches", {})
+    log(f"card: {ctx.get('smi', 'not read')}")
+    release(torch, ctx)
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in TRAIN_RUNS:
+            ckpt = os.path.join(tmp, f"{run[0]}.npz") if run[0] == "b" \
+                else ""
+            params, cfg = train_run(torch, ctx, *run, ckpt)
+            del params
+            release(torch, ctx)
+            if ckpt:
+                counts["window_attention"] = (
+                    counts.get("window_attention", 0)
+                    + serve_trained(torch, ctx, cfg, ckpt))
+                release(torch, ctx)
+
+
+def train_run(torch, ctx, label, arch, changes, batch, seq, steps, ckpt):
+    """One run of phase 22 (b) / (c) through ``trainer.train``, then one
+    step split into its parts and one under the profiler."""
+    import numpy as np
+
+    from repro_torch.data import pipeline
+    from repro_torch.models import model, moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+    from repro_torch.train.steps import param_dict
+    dev = ctx["dev"]
+    cfg = family_cfg(arch, changes)
+    tcfg = trainer.TrainerConfig(steps=steps, batch=batch, seq_len=seq,
+                                 log_every=1, ckpt_path=ckpt, seed=0,
+                                 opt=train_opt(steps))
+    times, mets, drops = [], [], []
+    real_make, real_dispatch = trainer.make_train_step, moe.dispatch
+
+    def timed_make(cfg_, opt_):
+        step = real_make(cfg_, opt_)
+
+        def run(params, opt_state, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls.clear()
+            out = step(params, opt_state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in out[2].items()})
+            # a step dispatches each MoE layer twice, in the forward and
+            # in backward's recomputation (the same inputs): keep the first
+            drops.append([int(d) for d in calls[:len(calls) // 2]])
+            return out
+        return run
+
+    def counted(x, eidx, n_experts, cap):
+        buf, pos, keep = real_dispatch(x, eidx, n_experts, cap)
+        calls.append((~keep).sum())
+        shape.update(cap=cap, assignments=keep.numel())
+        return buf, pos, keep
+    calls, shape = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.make_train_step, moe.dispatch = timed_make, counted
+    try:
+        params, opt_state, history = trainer.train(cfg, tcfg, device=dev)
+    finally:
+        trainer.make_train_step, moe.dispatch = real_make, real_dispatch
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+    step_s = float(np.median(times[1:]))
+    flops = model_flops(params, cfg, batch, seq)
+    reduced = ", ".join(f"{k} {v}" for k, v in changes.items())
+    log(f"({label}) {arch} ({cfg.arch_type}; {reduced}): {n_params:,} bf16 "
+        f"parameters ({n_params * 2 / 1e9:.2f} GB, float32 moments "
+        f"{n_params * 8 / 1e9:.2f} GB), batch {batch} x {seq}, {steps} "
+        f"steps through trainer.train in {wall:.1f} s (checkpoint "
+        f"included{'' if ckpt else ': none'})")
+    log(f"({label}) ms a step (median of steps 2-{steps}): "
+        f"{1e3 * step_s:.1f} (first {1e3 * times[0]:.1f}; "
+        + ", ".join(f"{1e3 * t:.1f}" for t in times[1:]) + f"), "
+        f"{batch * seq / step_s:,.0f} tokens/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"({label}) loss " + ", ".join(f"{m['loss']:.4f}" for m in mets)
+        + "; gnorm " + ", ".join(f"{m['grad_norm']:.3f}" for m in mets)
+        + "; lr " + ", ".join(f"{m['lr']:.2e}" for m in mets))
+    log(f"({label}) model FLOPs a step: 6 N T + 12 L S^2 H dh B = "
+        f"{flops / 1e12:.1f} TFLOP (N {matmul_params(params, cfg) / 1e9:.3f}"
+        f" B multiplied a token, T {batch * seq}); "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / H100_BF16_FLOPS:.3f} of the dense bf16 peak "
+        f"({H100_BF16_FLOPS / 1e12:.0f} TFLOP/s)")
+    if shape:
+        log(f"({label}) MoE assignments dropped, each step's layers (cap "
+            f"{shape['cap']} an expert, {shape['assignments']} assignments "
+            f"a layer, {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}): "
+            f"{drops}")
+    losses = [m["loss"] for m in mets]
+    if not all(np.isfinite([m["loss"] for m in mets]
+                           + [m["grad_norm"] for m in mets])):
+        raise AssertionError(f"({label}) a loss or gnorm is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"({label}) the loss did not fall: {losses}")
+    if [s for s, _ in history] != list(range(steps)):
+        raise AssertionError(f"({label}) history {history}")
+
+    # one more step, split into its parts by CUDA events
+    b = pipeline.make_batch(cfg, batch, seq, seed=777, device=dev)
+    named = list(params.named_parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    with model.trainable(params):
+        ev[0].record()
+        x, aux = model.hidden(params, cfg, b)
+        ev[1].record()
+        loss = model.token_nll(params, cfg, x, b["labels"]) \
+            + (0.01 if cfg.moe is not None else 0.0) * aux
+        ev[2].record()
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        ev[3].record()
+    del x
+    with torch.no_grad():
+        opt_state, _ = adamw.update_(
+            tcfg.opt, {n: g for (n, _), g in zip(named, grads)}, opt_state,
+            param_dict(params))
+    ev[4].record()
+    torch.cuda.synchronize()
+    del grads
+    parts = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    total = sum(parts)
+    log(f"({label}) one step split by CUDA events: " + ", ".join(
+        f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in zip(
+            ("forward (trunk, remat)", "loss (logits, logsumexp)",
+             "backward (recompute + grads)", "optimizer (AdamW, in place)"),
+            parts)) + f"; {total:.1f} ms")
+    box = [params, opt_state]
+    step = trainer.make_train_step(cfg, tcfg.opt)
+
+    def one_step(_):
+        box[0], box[1], _m = step(box[0], box[1], b)
+    try:
+        wall_s, busy_s, top, n_k = device_busy(torch, one_step)
+    except Exception:
+        traceback.print_exc()
+        busy_s = None
+    if busy_s is None:
+        log(f"({label}) device idle share: not measured (no device time)")
+    else:
+        log(f"({label}) one step under torch.profiler: wall "
+            f"{1e3 * wall_s:.1f} ms, device busy {1e3 * busy_s:.1f} ms, "
+            f"idle share {max(0.0, 1 - busy_s / wall_s):.3f}, {n_k} device "
+            "kernels")
+        for t, name, _ in top[:8]:
+            log(f"  {t / 1e3:9.2f} ms  {name[:70]}")
+    del box, opt_state, b
+    return params, cfg
+
+
+def serve_trained(torch, ctx, cfg, ckpt):
+    """(b)'s checkpoint into a fresh ``Model`` (the reference's keys and
+    shapes), then a prompt teacher-forced through decode at decode_32k
+    against ``prefill``, and 16 greedy tokens through B4, counted.
+    Returns window_attention's launches."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.window_attention import window_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.serve import engine
+    from repro_torch.train import trainer
+    dev = ctx["dev"]
+    t0 = time.perf_counter()
+    params, step = trainer.restore_params(ckpt, cfg, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    data = np.load(ckpt)
+    want = {k.replace(".", "::"): tuple(v.shape) for k, v in
+            interop.params_to_arrays(params, cfg).items()}
+    got = {k: tuple(data[k].shape) for k in data.files if k != "__step__"}
+    log(f"(b) checkpoint: {os.path.getsize(ckpt) / 1e9:.2f} GB, "
+        f"{len(got)} keys (stacked [L, ...], '::' paths), step {step}; "
+        f"restored into a fresh Model in {secs:.1f} s")
+    if got != want or step != TRAIN_RUNS[0][5]:
+        raise AssertionError(f"(b) checkpoint keys or shapes differ from "
+                             f"the reference layout, or step {step}")
+    toks = pipeline.make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, seed=4321,
+                               device=dev)["tokens"]
+    want_logits = model.prefill(params, cfg, {"tokens": toks})
+    state = engine.init_cache(cfg, SERVE_BATCH, FAMILY_CTX, device=dev)
+    state.cache_len.zero_()
+    window_attention.launches = 0
+    for i in range(SERVE_PROMPT):
+        logits, state = engine.decode_step(params, cfg, toks[:, i:i + 1],
+                                           state)
+    forced = window_attention.launches
+    d, ref = logits[:, :cfg.vocab], want_logits[:, :cfg.vocab]
+    diff = float((d - ref).abs().max())
+    excess = float(((d - ref).abs() - DECODE_PREFILL_TOL
+                    * (1 + ref.abs())).max())
+    ratio = float(((d - ref).abs() / (1 + ref.abs())).max())
+    log(f"(b) trained model, bf16: {SERVE_PROMPT} teacher-forced decode steps "
+        f"vs prefill, last logits max |diff| {diff:.2e}, max |diff| / (1 + "
+        f"|prefill|) {ratio:.2e} (limit {DECODE_PREFILL_TOL}); "
+        f"window_attention launches {forced}")
+    if not excess <= 0:
+        raise AssertionError(f"(b) decode off prefill by {diff}")
+    tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None].int()
+    window_attention.launches = 0
+    seqs, logits, state, seconds = serve.generate(params, cfg, tok, state,
+                                                  FAMILY_TOKENS)
+    n_launch = window_attention.launches
+    step_ms = 1e3 * sum(seconds[1:]) / (len(seconds) - 1)
+    log(f"(b) {FAMILY_TOKENS} greedy tokens at decode_32k (batch "
+        f"{SERVE_BATCH}, {SERVE_PROMPT} rows of {FAMILY_CTX} filled): "
+        f"{step_ms:.2f} ms a step; window_attention launches {n_launch} "
+        f"(expected {cfg.n_layers} a step); tokens of request 0: "
+        f"{seqs[0].tolist()}")
+    if n_launch != cfg.n_layers * FAMILY_TOKENS or forced != \
+            cfg.n_layers * SERVE_PROMPT:
+        raise AssertionError(f"(b) {forced} + {n_launch} window_attention "
+                             f"launches, not {cfg.n_layers} a step")
+    if not bool(torch.isfinite(logits[:, :cfg.vocab]).all()):
+        raise AssertionError("(b) decode logits not finite")
+    del params, state
+    return forced + n_launch
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -5107,7 +5515,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     from repro_torch.kernels import _build
     dev = cuda_device(torch)
-    ctx = {"dev": dev}
+    ctx = {"dev": dev, "smi": smi}
     failed = []
 
     t0 = time.perf_counter()
@@ -5173,7 +5581,10 @@ def main() -> int:
                      ("phase 21 model families, reduced gates",
                       phase_family_parity),
                      ("phase 21 model families on the card",
-                      phase_families)):
+                      phase_families),
+                     ("phase 22 training, reduced gates",
+                      phase_train_parity),
+                     ("phase 22 training on the card", phase_train)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:

@@ -1,1 +1,2 @@
-"""Data generators of the port (``repro.data``): mutation traffic."""
+"""Data generators of the port (``repro.data``): training batches and
+mutation traffic."""

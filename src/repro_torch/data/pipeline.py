@@ -1,15 +1,54 @@
-"""Live-graph mutation traffic for online serving (DESIGN.md §13).
+"""Deterministic synthetic data (``repro.data.pipeline`` in PyTorch):
+the language models' training batches (``make_batch``) and live-graph
+mutation traffic for online serving (DESIGN.md §13).
 
-The port of ``MutationBatch`` and ``edge_stream`` from
-``repro.data.pipeline`` (the language-model token pipelines there are
-not ported).  Both are host numpy on the same seeded ``default_rng``
-calls, so a stream is bitwise the reference's.
+Both draw on the host with numpy, by the reference's seeded
+``default_rng`` calls in the reference's order, so a batch or a stream
+is bitwise the reference's.  The dry run's input specs wait for the
+tooling slice.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _split_train_seq(cfg, seq_len: int):
+    """``(front, text)`` positions of a training sequence: the audio
+    family splits it between encoder frames and decoder tokens; the vlm
+    carves its patch positions out of it."""
+    if cfg.arch_type == "audio":
+        return seq_len // 2, seq_len // 2
+    if cfg.arch_type == "vlm":
+        return cfg.n_frontend_tokens, seq_len - cfg.n_frontend_tokens
+    return 0, seq_len
+
+
+def make_batch(cfg, batch: int, seq_len: int, seed: int = 0, device=None):
+    """A synthetic training batch on ``device`` (the GPU unless
+    ``device="cpu"``): ``tokens`` and ``labels`` int32 [B, text], the
+    labels the tokens shifted by one, from an order-0 stream over a
+    skewed (Dirichlet) unigram distribution of the first min(vocab,
+    4,096) ids, so the loss can fall; plus float32 ``frames`` (audio) or
+    ``patches`` (vlm) [B, front, d] of standard normals."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    front, txt = _split_train_seq(cfg, seq_len)
+    probs = rng.dirichlet(np.full(min(cfg.vocab, 4096), 0.5))
+    ids = rng.choice(len(probs), size=(batch, txt + 1), p=probs)
+    up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
+        device)
+    out = {"tokens": up(ids[:, :-1], np.int32),
+           "labels": up(ids[:, 1:], np.int32)}
+    if cfg.arch_type in ("audio", "vlm"):
+        name = "frames" if cfg.arch_type == "audio" else "patches"
+        out[name] = up(rng.normal(size=(batch, front, cfg.d_model)),
+                       np.float32)
+    return out
 
 
 class MutationBatch(NamedTuple):

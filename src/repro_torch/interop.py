@@ -30,7 +30,10 @@ leading axis: ``[L, ...]``, ``[n_enc_layers, ...]``, or ``[n_periods,
 for bit.  A serving state flattened the same way (``cache_k``,
 ``cache_v``, ``cache_len``, ``mamba_state.h``, ``mamba_state.conv``,
 ``mem_k``, ``mem_v``; a part the reference keeps as ``{}`` absent)
-becomes the port's ``ServeState``.  bfloat16 arrives as an
+becomes the port's ``ServeState``, and the reference's AdamW state
+(``m.<key>``, ``v.<key>``, ``step``) the port's (``opt_state_from_arrays``).
+``params_to_arrays`` exports the port's parameters in that layout
+again.  bfloat16 arrives as an
 ``ml_dtypes`` array, which this package reads through its raw 16 bits,
 so it never imports ``ml_dtypes``.
 """
@@ -119,7 +122,9 @@ def graph_to_arrays(graph: DataGraph) -> tuple[dict, dict]:
 
 def _tensor(a) -> torch.Tensor:
     """A CPU tensor of an exported array, bfloat16 (``ml_dtypes``) read
-    bitwise through its 16 bits."""
+    bitwise through its 16 bits; a tensor is taken as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -137,39 +142,113 @@ def _stacks(cfg: ModelConfig) -> dict[str, int]:
     return out
 
 
+def _stacked_name(name: str):
+    """A port parameter name -> ``(exported key, stack, layer index)``:
+    the first all-digit part of the name is the layer's index in its
+    stack (``layers.3.mix.wq`` -> ``("layers.mix.wq", "layers", 3)``,
+    the hybrid's ``layers.l1.0.norm1`` -> ``("layers.l1.norm1",
+    "layers.l1", 0)``); a name with none is not stacked (``(name, None,
+    None)``)."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return (".".join(parts[:i] + parts[i + 1:]),
+                    ".".join(parts[:i]), int(part))
+    return name, None, None
+
+
+def _unstack(tensors: dict, like: dict, what: str) -> dict:
+    """Exported tensors (stacks ``[n, ...]``) cut into the port's names
+    of ``like``: the set of names, the layer counts, the shapes and the
+    dtypes must be ``like``'s."""
+    state, want_stack = {}, {}
+    for name in like:
+        key, _, i = _stacked_name(name)
+        if key not in tensors:
+            raise ValueError(f"{what} names differ: missing {key!r}")
+        t = tensors[key]
+        if i is not None:
+            want_stack[key] = max(want_stack.get(key, 0), i + 1)
+            t = t[i] if i < t.shape[0] else None
+        state[name] = t
+    for key, n in want_stack.items():
+        if tensors[key].shape[0] != n:
+            raise ValueError(f"{key}: {tensors[key].shape[0]} stacked "
+                             f"layers, the config has {n}")
+    extra = set(tensors) - {_stacked_name(n)[0] for n in like}
+    if extra:
+        raise ValueError(f"{what} names differ: extra {sorted(extra)}")
+    for name, t in state.items():
+        w = like[name]
+        if t.shape != w.shape or t.dtype != w.dtype:
+            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, the "
+                             f"model has {tuple(w.shape)} {w.dtype}")
+    return state
+
+
 def params_from_arrays(arrays: dict, cfg: ModelConfig, device=None) -> Model:
     """The port's ``Model`` on ``device`` holding the exported reference
     parameters: a stacked ``<stack>.<name>`` ``[n, ...]`` becomes
     ``<stack>.<i>.<name>`` (stacks: ``layers``, ``enc_layers``, the
-    hybrid's ``layers.l<j>``).  The dtypes are the arrays' (the weights'
+    hybrid's ``layers.l<j>``).  The arrays may be numpy (bfloat16 as
+    ``ml_dtypes``) or tensors.  The dtypes are the arrays' (the weights'
     from ``embed``); a missing, extra or mis-shaped array raises."""
     device = resolve_device(device)
     tensors = {k: _tensor(a) for k, a in arrays.items()}
     model = Model(cfg, dtype=tensors["embed"].dtype, device=device)
-    stacks = _stacks(cfg)
-    state = {}
-    for key, t in tensors.items():
-        stack = next((st for st in stacks if key.startswith(st + ".")), None)
-        if stack is None:
-            state[key] = t
-            continue
-        if t.shape[0] != stacks[stack]:
-            raise ValueError(f"{key}: {t.shape[0]} stacked layers, the "
-                             f"config has {stacks[stack]}")
-        for i in range(stacks[stack]):
-            state[f"{stack}.{i}.{key[len(stack) + 1:]}"] = t[i]
-    want = model.state_dict()
-    if set(state) != set(want):
-        raise ValueError(f"parameter names differ: missing "
-                         f"{sorted(set(want) - set(state))}, extra "
-                         f"{sorted(set(state) - set(want))}")
-    for key, t in state.items():
-        if t.shape != want[key].shape or t.dtype != want[key].dtype:
-            raise ValueError(f"{key}: got {tuple(t.shape)} {t.dtype}, the "
-                             f"model has {tuple(want[key].shape)} "
-                             f"{want[key].dtype}")
-    model.load_state_dict(state)
+    model.load_state_dict(_unstack(tensors, model.state_dict(),
+                                   "parameter"))
     return model
+
+
+def params_to_arrays(params, cfg: ModelConfig) -> dict:
+    """The inverse of ``params_from_arrays``: a ``Model``'s parameters
+    (or a dict of its parameter names to tensors, such as gradients or
+    moments) with each stack's layers stacked back to ``[n, ...]`` under
+    the exported key (``layers.mix.wq``, ``layers.l<j>.*``,
+    ``enc_layers.*``).  Tensors on the parameters' device, detached: a
+    bfloat16 array has no numpy dtype without ``ml_dtypes``."""
+    items = (params.state_dict() if isinstance(params, torch.nn.Module)
+             else params)
+    stacks = _stacks(cfg)
+    out, rows = {}, {}
+    for name, t in items.items():
+        key, stack, i = _stacked_name(name)
+        if i is None:
+            out[key] = t.detach()
+        else:
+            rows.setdefault((key, stack), {})[i] = t.detach()
+    for (key, stack), layer in rows.items():
+        n = stacks[stack]
+        if sorted(layer) != list(range(n)):
+            raise ValueError(f"{key}: layers {sorted(layer)}, the config "
+                             f"has {n}")
+        out[key] = torch.stack([layer[i] for i in range(n)])
+    return out
+
+
+def opt_state_from_arrays(arrays: dict, like_params: Model):
+    """An exported reference ``AdamWState`` (``m.<key>`` and ``v.<key>``
+    in the parameters' exported layout, float32, and the int32 scalar
+    ``step``) as the port's ``optim.adamw.AdamWState`` for
+    ``like_params``, on its device: the moments under the port's
+    parameter names."""
+    from repro_torch.optim.adamw import AdamWState
+    like = dict(like_params.named_parameters())
+    device = next(iter(like.values())).device
+    f32 = {n: p.new_empty(p.shape, dtype=torch.float32)
+           for n, p in like.items()}
+    parts = {}
+    for part in ("m", "v"):
+        tensors = {k[len(part) + 1:]: _tensor(a) for k, a in arrays.items()
+                   if k.startswith(part + ".")}
+        parts[part] = {n: t.to(device) for n, t in
+                       _unstack(tensors, f32, f"{part} moment").items()}
+    step = _tensor(arrays["step"])
+    if step.shape != () or step.dtype != torch.int32:
+        raise ValueError(f"step: got {tuple(step.shape)} {step.dtype}, "
+                         "want an int32 scalar")
+    return AdamWState(parts["m"], parts["v"], step.to(device))
 
 
 def serve_state_from_arrays(arrays: dict, cfg: ModelConfig,

@@ -17,8 +17,11 @@ it takes the kernel too (``cross_attention_decode``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.window_attention import window_attention
 from repro_torch.models.layers import linear_init, rmsnorm, rmsnorm_init, rope
@@ -92,6 +95,45 @@ _QC = 512      # query chunk
 _KC = 1024     # kv chunk
 
 
+def _flash_q_block(qb, kr, vr, q0: int, causal: bool, window: int | None,
+                   scale: float) -> torch.Tensor:
+    """One query chunk qb [B,H,qc,dh] (first position ``q0``) against
+    every KV chunk kr/vr [nk,B,H,kc,dh] by the online softmax; returns
+    [B,H,qc,dh] in q's dtype."""
+    b, h, qc, dh = qb.shape
+    kc = kr.shape[3]
+    dev = qb.device
+    qpos = q0 + torch.arange(qc, device=dev)
+    neg = torch.tensor(float("-inf"), device=dev)
+    zero = torch.zeros((), device=dev)
+    m_p = torch.full((b, h, qc), float("-inf"), device=dev)
+    l_p = torch.zeros((b, h, qc), device=dev)
+    acc = torch.zeros((b, h, qc, dh), device=dev)
+    for ki in range(kr.shape[0]):
+        kb, vb = kr[ki], vr[ki]
+        kpos = ki * kc + torch.arange(kc, device=dev)
+        sc = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
+        ok = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+        if causal:
+            ok &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            ok &= (qpos[:, None] - kpos[None, :]) < window
+        sc32 = torch.where(ok, sc.float(), neg)
+        m_c = torch.maximum(m_p, sc32.amax(-1))
+        # fully masked blocks keep m == -inf: guard the exps so the
+        # running state stays finite (their entries are 0 anyway)
+        m_safe = torch.where(torch.isfinite(m_c), m_c, zero)
+        pr = torch.exp(sc.float() - m_safe[..., None]).to(qb.dtype)
+        pr = torch.where(ok, pr, 0)
+        alpha = torch.where(torch.isfinite(m_p), torch.exp(m_p - m_safe),
+                            zero)
+        l_p = alpha * l_p + pr.float().sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", pr, vb).float()
+        m_p = m_c
+    return (acc / torch.clamp(l_p, min=1e-30)[..., None]).to(qb.dtype)
+
+
 def flash_attention(q, k, v, causal: bool, window: int | None,
                     n_rep: int) -> torch.Tensor:
     """Memory-bounded attention: an online softmax over KV chunks inside
@@ -99,7 +141,9 @@ def flash_attention(q, k, v, causal: bool, window: int | None,
     instead of [B,H,S,S].  As in the reference, the probability tile is
     stored in q's dtype (bf16 for bf16 models) while the running max and
     denominator stay float32.  S and T must be multiples of the chunks
-    (or smaller than them)."""
+    (or smaller than them).  Where autograd records, each query chunk
+    runs under a checkpoint, as the reference checkpoints its q block:
+    backward then holds one chunk's score tiles, not all nq x nk."""
     b, s, h, dh = q.shape
     t = k.shape[1]
     if n_rep > 1:
@@ -108,44 +152,15 @@ def flash_attention(q, k, v, causal: bool, window: int | None,
     qc = min(_QC, s)
     kc = min(_KC, t)
     nq, nk = s // qc, t // kc
-    scale = dh ** -0.5
     qr = q.reshape(b, nq, qc, h, dh).permute(1, 0, 3, 2, 4)   # [nq,B,H,qc,dh]
     kr = k.reshape(b, nk, kc, h, dh).permute(1, 0, 3, 2, 4)
     vr = v.reshape(b, nk, kc, h, dh).permute(1, 0, 3, 2, 4)
-    neg = torch.tensor(float("-inf"), device=q.device)
-    zero = torch.zeros((), device=q.device)
-    outs = []
-    for qi in range(nq):
-        qb = qr[qi]
-        qpos = qi * qc + torch.arange(qc, device=q.device)
-        m_p = torch.full((b, h, qc), float("-inf"), device=q.device)
-        l_p = torch.zeros((b, h, qc), device=q.device)
-        acc = torch.zeros((b, h, qc, dh), device=q.device)
-        for ki in range(nk):
-            kb, vb = kr[ki], vr[ki]
-            kpos = ki * kc + torch.arange(kc, device=q.device)
-            sc = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
-            ok = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
-            if causal:
-                ok &= kpos[None, :] <= qpos[:, None]
-            if window is not None:
-                ok &= (qpos[:, None] - kpos[None, :]) < window
-            sc32 = torch.where(ok, sc.float(), neg)
-            m_c = torch.maximum(m_p, sc32.amax(-1))
-            # fully masked blocks keep m == -inf: guard the exps so the
-            # running state stays finite (their entries are 0 anyway)
-            m_safe = torch.where(torch.isfinite(m_c), m_c, zero)
-            pr = torch.exp(sc.float() - m_safe[..., None]).to(qb.dtype)
-            pr = torch.where(ok, pr, 0)
-            alpha = torch.where(torch.isfinite(m_p), torch.exp(m_p - m_safe),
-                                zero)
-            l_p = alpha * l_p + pr.float().sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bhkd->bhqd", pr, vb).float()
-            m_p = m_c
-        outs.append((acc / torch.clamp(l_p, min=1e-30)[..., None])
-                    .to(q.dtype))                          # [B,H,qc,dh]
-    ob = torch.stack(outs)
+    block = _flash_q_block
+    if torch.is_grad_enabled():
+        block = functools.partial(checkpoint, _flash_q_block,
+                                  use_reentrant=False)
+    ob = torch.stack([block(qr[qi], kr, vr, qi * qc, causal, window,
+                            dh ** -0.5) for qi in range(nq)])
     return ob.permute(1, 0, 3, 2, 4).reshape(b, s, h, dh)
 
 

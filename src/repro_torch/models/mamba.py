@@ -9,7 +9,8 @@ Hillis-Steele scan applies that in log2(chunk) rounds of whole-tensor
 ops (8 at 256): the counterpart of the reference's
 ``lax.associative_scan``, whose tree sums in another order.  The
 ``[B, chunk, d_inner, d_state]`` tensors are built inside the chunk
-loop, so peak memory is one chunk's.
+loop, so peak memory is one chunk's, in backward too (a checkpoint a
+chunk).
 
 Decode is the O(1) recurrent step; it updates the state it is given in
 place (``h`` float32, and the conv tail, which is bfloat16 whatever the
@@ -17,11 +18,13 @@ model's dtype, as in the reference).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import linear_init
 
@@ -101,36 +104,50 @@ def _ssm_inputs(p: Mamba, cfg, xz: torch.Tensor):
 
 def scan_chunk(a: torch.Tensor, b: torch.Tensor):
     """Inclusive scan of ``(a, b)`` along dim 1 under ``(a, b) o (a', b') =
-    (a a', a' b + b')``, Hillis-Steele, in place: after the round at
-    offset ``o`` each step holds the composition of the ``2 o`` steps
-    ending at it.  Returns ``(a, b)``: the products of a, and the states
-    from a zero start."""
+    (a a', a' b + b')``, Hillis-Steele: after the round at offset ``o``
+    each step holds the composition of the ``2 o`` steps ending at it.
+    Returns ``(a, b)``: the products of a, and the states from a zero
+    start.  Each round builds new tensors (the first ``o`` steps kept,
+    the rest combined), so autograd can go through it; the products and
+    adds are those of an in-place round, in the same order."""
     c = a.shape[1]
     for r in range(math.ceil(math.log2(c)) if c > 1 else 0):
         o = 1 << r
-        b[:, o:] += b[:, :-o] * a[:, o:]
-        a[:, o:] = a[:, :-o] * a[:, o:]
+        b = torch.cat([b[:, :o], b[:, o:] + b[:, :-o] * a[:, o:]], dim=1)
+        a = torch.cat([a[:, :o], a[:, :-o] * a[:, o:]], dim=1)
     return a, b
 
 
+def _scan_block(a, h, dtk, xk, bk, ck):
+    """One chunk: discretise, scan, inject the carry ``h`` [B, di, ds].
+    Returns ``(h at the chunk's last step, y [B, c, di])``."""
+    da = torch.exp(dtk[..., None] * a)                       # [B,c,di,ds]
+    dbx = (dtk * xk)[..., None] * bk[:, :, None, :]
+    aa, hh = scan_chunk(da, dbx)
+    hh = hh + aa * h[:, None]                                # the carry
+    return hh[:, -1].clone(), torch.einsum("bcdn,bcn->bcd", hh, ck)
+
+
 def apply_train(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d]; the chunked selective scan."""
+    """x: [B, S, d] -> [B, S, d]; the chunked selective scan.  Where
+    autograd records, each chunk runs under a checkpoint, as the
+    reference checkpoints its chunk body: backward then holds one
+    chunk's ``[B, c, di, ds]`` rounds at a time, not every chunk's."""
     b, s, _ = x.shape
     di, ds = cfg.d_inner, cfg.ssm.d_state
     xc, z, dt, bmat, cmat = _ssm_inputs(p, cfg, x @ p.in_proj)
     a = -torch.exp(p.A_log)                                  # [di, ds]
     xf = xc.float()
     h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    block = _scan_block
+    if torch.is_grad_enabled():
+        block = functools.partial(checkpoint, _scan_block,
+                                  use_reentrant=False)
     ys = []
     for c0 in range(0, s, _CHUNK):
         sl = slice(c0, c0 + _CHUNK)
-        dtk = dt[:, sl]
-        da = torch.exp(dtk[..., None] * a)                   # [B,c,di,ds]
-        dbx = (dtk * xf[:, sl])[..., None] * bmat[:, sl, None, :]
-        aa, hh = scan_chunk(da, dbx)
-        hh = hh + aa * h[:, None]                            # the carry
-        ys.append(torch.einsum("bcdn,bcn->bcd", hh, cmat[:, sl]))
-        h = hh[:, -1]
+        h, yk = block(a, h, dt[:, sl], xf[:, sl], bmat[:, sl], cmat[:, sl])
+        ys.append(yk)
     y = torch.cat(ys, dim=1) + xf * p.D
     y = (y * F.silu(z.float())).to(x.dtype)
     return y @ p.out_proj

@@ -16,13 +16,17 @@ Families:
 The reference stacks the layers' parameters on a leading axis and scans
 over them; here each stack is a ``ModuleList`` and the scan a Python
 loop, which is the same computation.  The reference's sharding hints
-are no-ops on one device and are left out.  The training forward and
-its loss wait for the training slice.
+are no-ops on one device and are left out.  ``forward`` is the
+training forward and its loss; ``trainable`` turns the parameters'
+gradients on for a step.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -160,8 +164,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     return Model(cfg, gen, dtype, device)
 
 
+@contextlib.contextmanager
+def trainable(params: Model):
+    """Inside the block every parameter of ``params`` records gradients;
+    on exit each gets back the flag it had.  The parameters are built
+    with ``requires_grad=False``, which serving keeps: ``prefill`` and
+    ``decode_step`` run under ``torch.no_grad`` either way."""
+    saved = [(p, p.requires_grad) for p in params.parameters()]
+    for p, _ in saved:
+        p.requires_grad_(True)
+    try:
+        yield params
+    finally:
+        for p, flag in saved:
+            p.requires_grad_(flag)
+
+
 # ----------------------------------------------------------------------
-# Forward (prefill)
+# Forward (training and prefill)
 # ----------------------------------------------------------------------
 
 def _layer_apply(p: Layer, cfg, x: torch.Tensor, positions,
@@ -191,28 +211,43 @@ def _layer_apply(p: Layer, cfg, x: torch.Tensor, positions,
     return x, aux
 
 
+def _layer_remat(lp: Layer, cfg, x, positions, causal=True, mem=None,
+                 remat: bool = True):
+    """``_layer_apply``, under a checkpoint where ``remat`` is set and
+    autograd records: backward recomputes the layer from its input and
+    keeps none of its activations, the counterpart of the reference's
+    ``jax.checkpoint(policy=nothing_saveable)``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(_layer_apply, lp, cfg, x, positions, causal, mem,
+                          use_reentrant=False)
+    return _layer_apply(lp, cfg, x, positions, causal, mem)
+
+
 def _run_stack(layers: nn.ModuleList, cfg, x: torch.Tensor, positions,
-               causal: bool = True, mem: torch.Tensor | None = None):
+               causal: bool = True, mem: torch.Tensor | None = None,
+               remat: bool = True):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        x, a = _layer_apply(lp, cfg, x, positions, causal, mem)
+        x, a = _layer_remat(lp, cfg, x, positions, causal, mem, remat)
         aux = aux + a
     return x, aux
 
 
-def _run_hybrid(params: Model, cfg, x: torch.Tensor, positions):
+def _run_hybrid(params: Model, cfg, x: torch.Tensor, positions,
+                remat: bool = True):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, lp in hybrid_layers(params, cfg):
-        x, a = _layer_apply(lp, cfg, x, positions)
+        x, a = _layer_remat(lp, cfg, x, positions, remat=remat)
         aux = aux + a
     return x, aux
 
 
 def _trunk(params: Model, cfg, x: torch.Tensor, positions,
-           mem: torch.Tensor | None = None):
+           mem: torch.Tensor | None = None, remat: bool = True):
     if cfg.arch_type == "hybrid":
-        return _run_hybrid(params, cfg, x, positions)
-    return _run_stack(params.layers, cfg, x, positions, causal=True, mem=mem)
+        return _run_hybrid(params, cfg, x, positions, remat)
+    return _run_stack(params.layers, cfg, x, positions, causal=True, mem=mem,
+                      remat=remat)
 
 
 def _logits(params: Model, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -231,7 +266,8 @@ def _embed_tokens(params: Model, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens.long()]
 
 
-def _encode(params: Model, cfg, frames: torch.Tensor) -> torch.Tensor:
+def _encode(params: Model, cfg, frames: torch.Tensor,
+            remat: bool = True) -> torch.Tensor:
     """The audio encoder: bidirectional self-attention over the frames
     [B,T,d], then ``enc_norm``.  Frames in bfloat16 meet a float32
     model's weights in float32 (the reference's scan refuses that
@@ -239,7 +275,8 @@ def _encode(params: Model, cfg, frames: torch.Tensor) -> torch.Tensor:
     frames = frames.to(torch.promote_types(frames.dtype,
                                            params.embed.dtype))
     pos = torch.arange(frames.shape[1], device=frames.device)[None]
-    x, _ = _run_stack(params.enc_layers, cfg, frames, pos, causal=False)
+    x, _ = _run_stack(params.enc_layers, cfg, frames, pos, causal=False,
+                      remat=remat)
     return rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -252,6 +289,64 @@ def _project_patches(params: Model, patches: torch.Tensor) -> torch.Tensor:
     return act_fn("gelu")(x @ pr.w1) @ pr.w2
 
 
+def _inputs(params: Model, cfg, batch: dict, remat: bool):
+    """The trunk's input [B, P + S, d] (P projected patches for the vlm,
+    else 0), its positions, the audio encoder's memory (or None) and
+    P.  Frames and patches are taken in bfloat16, as the reference
+    takes them."""
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    mem, n_front = None, 0
+    if cfg.arch_type == "audio":
+        mem = _encode(params, cfg, batch["frames"].to(torch.bfloat16), remat)
+    elif cfg.arch_type == "vlm":
+        patches = _project_patches(params, batch["patches"])
+        n_front = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    return x, pos, mem, n_front
+
+
+def hidden(params: Model, cfg: ModelConfig, batch: dict,
+           remat: bool = True):
+    """The training forward's trunk: ``(x [B, S, d], aux)``, x the
+    final-normed states of the text positions (the vlm's patch positions
+    dropped) and aux the summed MoE load-balance loss."""
+    x, pos, mem, n_front = _inputs(params, cfg, batch, remat)
+    x, aux = _trunk(params, cfg, x, pos, mem=mem, remat=remat)
+    return rmsnorm(x[:, n_front:], params.final_norm, cfg.norm_eps), aux
+
+
+def token_nll(params: Model, cfg: ModelConfig, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """The mean over every position of ``logsumexp(logits) -
+    logits[label]``, the logits float32 over ``vocab_padded`` with the
+    padding rows at -1e9.  The label's logit is gathered: the
+    reference contracts the logits with a one-hot of the label, a sum
+    of that one logit and zeros, which is the same number, and a
+    ``[B, S, V]`` one-hot is never built."""
+    logits = _logits(params, cfg, x)
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    return nll.sum() / max(nll.numel(), 1)
+
+
+def forward(params: Model, cfg: ModelConfig, batch: dict,
+            remat: bool = True):
+    """The training forward: ``(loss, {"nll": ..., "aux": ...})``.
+    ``batch`` holds ``tokens`` and ``labels`` [B, S], plus ``frames``
+    (audio) or ``patches`` (vlm) as ``data.pipeline.make_batch`` makes
+    them.  The loss is the token nll over the text positions plus 0.01
+    times the MoE load-balance loss where the config has MoE.  With
+    ``remat`` each layer is recomputed in backward (``_layer_remat``).
+    Autograd records only where the parameters ask for gradients
+    (``trainable``)."""
+    x, aux = hidden(params, cfg, batch, remat)
+    nll = token_nll(params, cfg, x, batch["labels"])
+    aux_w = 0.01 if cfg.moe is not None else 0.0
+    return nll + aux_w * aux, {"nll": nll, "aux": aux}
+
+
 @torch.no_grad()
 def prefill(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Inference prefill: the forward without a loss; returns the last
@@ -259,13 +354,7 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     plus ``frames`` [B, T, d] (audio) or ``patches`` [B, P, d] (vlm), on
     the parameters' device; frames and patches are taken in bfloat16, as
     the reference takes them."""
-    x = _embed_tokens(params, cfg, batch["tokens"])
-    mem = None
-    if cfg.arch_type == "audio":
-        mem = _encode(params, cfg, batch["frames"].to(torch.bfloat16))
-    elif cfg.arch_type == "vlm":
-        x = torch.cat([_project_patches(params, batch["patches"]), x], dim=1)
-    pos = torch.arange(x.shape[1], device=x.device)[None]
+    x, pos, mem, _ = _inputs(params, cfg, batch, remat=True)
     x, _ = _trunk(params, cfg, x, pos, mem=mem)
     x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0]

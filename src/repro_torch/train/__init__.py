@@ -1,1 +1,2 @@
-"""Training-side utilities of the port (``repro.train``): checkpoints."""
+"""Training-side code of the port (``repro.train``): checkpoints, the
+train step and the trainer."""

@@ -1307,3 +1307,62 @@ def test_serving_replay_on_card_equals_rebuild(cuda, sched):
                        res.vertex_data["label"])
     assert np.array_equal(res.vertex_data["label"].cpu().numpy(),
                           cc.reference_components(all_edges, nv))
+
+
+def _loss_and_grads(model_lib, params, cfg, batch, remat=True):
+    named = list(params.named_parameters())
+    with model_lib.trainable(params):
+        loss, _ = model_lib.forward(params, cfg, batch, remat=remat)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True, materialize_grads=True)
+    return loss.detach(), {n: g for (n, _), g in zip(named, grads)}
+
+
+def _normwise(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm()) if float(
+        want.norm()) > 0 else float(got.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "jamba-1.5-large-398b"])
+def test_training_on_card_equals_cpu(cuda, arch, monkeypatch):
+    """The reduced config in float32, TF32 off: the loss within 1e-5 and
+    each gradient normwise within 1e-4 of the CPU's; three train steps
+    with their losses within 1e-5 and each parameter's update normwise
+    within 1e-3 (Adam's m / sqrt(v) makes an element-wise bound test an
+    ulp's noise at a near-zero gradient)."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step, param_dict
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.get(arch).reduced()
+    cpu = model_lib.init_params(cfg, seed=0, dtype=torch.float32,
+                                device="cpu")
+    gpu = model_lib.Model(cfg, dtype=torch.float32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = pipeline.make_batch(cfg, 2, 16, seed=0, device="cpu")
+    cl, cg = _loss_and_grads(model_lib, cpu, cfg, batch)
+    gl, gg = _loss_and_grads(model_lib, gpu, cfg,
+                             {k: v.to(cuda) for k, v in batch.items()})
+    assert abs(float(gl) - float(cl)) <= 1e-5 * abs(float(cl))
+    for k in cg:
+        assert _normwise(gg[k], cg[k]) <= 1e-4, k
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    states = [adamw.init(param_dict(m)) for m in (cpu, gpu)]
+    steps = [make_train_step(cfg, opt) for _ in range(2)]
+    for i in range(3):
+        b = pipeline.make_batch(cfg, 2, 16, seed=100003 + i, device="cpu")
+        before = [{n: p.detach().clone() for n, p in m.named_parameters()}
+                  for m in (cpu, gpu)]
+        _, states[0], cm = steps[0](cpu, states[0], b)
+        _, states[1], gm = steps[1](gpu, states[1],
+                                    {k: v.to(cuda) for k, v in b.items()})
+        assert abs(float(gm["loss"]) - float(cm["loss"])) <= \
+            1e-5 * abs(float(cm["loss"]))
+        gp = dict(gpu.named_parameters())
+        for n, p in cpu.named_parameters():
+            assert _normwise(gp[n].detach() - before[1][n],
+                             p.detach() - before[0][n]) <= 1e-3, (i, n)

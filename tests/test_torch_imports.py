@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package, so both run on
-a GPU host that has neither.  Checked by parsing, not importing."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/*_torch.py`` imports JAX or the
+reference package, so all run on a GPU host that has neither.  Checked
+by parsing, not importing."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -64,3 +65,14 @@ def test_the_distributed_modules_are_scanned():
     for rel in ("core/mesh.py", "core/partition.py", "core/distributed.py",
                 "core/engine_locking.py", "baselines/mpi_als.py"):
         assert pkg / rel in FILES, rel
+
+
+def test_the_training_modules_are_scanned():
+    """The training path (forward and loss, batches, AdamW, the step,
+    the trainer, its launcher and example) stands alone too."""
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("models/model.py", "data/pipeline.py", "optim/adamw.py",
+                "train/steps.py", "train/trainer.py", "launch/train.py",
+                "interop.py"):
+        assert pkg / rel in FILES, rel
+    assert ROOT / "examples" / "train_lm_torch.py" in FILES
