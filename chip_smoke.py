@@ -291,7 +291,22 @@ Phases (any failure exits non-zero and prints no result):
                  ``prefill`` within 3e-2 * (1 + |prefill|), and 16
                  greedy tokens, window_attention's launches set to 0
                  just before and read just after (4 a step);
-23. report     — a ``{"kernels": [...]}`` line, then the contract line
+23. tooling    — (a) phase 22's (b) and (c) training steps, phase 10's
+                 decode_32k step and phase 21's (a)-(e) decode steps, each
+                 dry-run on meta at the one-card mesh
+                 (``launch.dryrun.dry_run``), then run on the card: its
+                 peak (arguments + ``max_memory_allocated`` above them)
+                 within 10 % of the dry run's, the op walker's FLOPs of the
+                 real step equal to the dry run's, the bytes beside them,
+                 the roofline's t_compute and t_memory beside the measured
+                 ms; (b) ``launch.graph_dryrun`` at its defaults (16,384
+                 vertices, 256 shards of a ``LocalMesh``, 4 supersteps),
+                 ell_spmv's launches set to 0 just before and read just
+                 after, against the same supersteps on one shard: ranks
+                 and updates bitwise, total_rank within 1e-6 (the sync
+                 merges 256 partial sums in shard order), host set-up
+                 seconds and ms a superstep;
+24. report     — a ``{"kernels": [...]}`` line, then the contract line
                  ``{"ok": true, "device": {...}}`` last.
 
 Needs one CUDA GPU and the repository's ``src/`` beside this file.
@@ -1306,15 +1321,12 @@ def log_attention_bodies(torch):
 
 def attention_bound(kv_len, h, hkv, dh, kv_bytes):
     """Least time for one window_attention call on this data: the larger
-    of the bytes it must move (every valid K and V row once per KV head,
-    q in float32 and kv_len read once, the float32 output written once)
-    over the HBM rate and its flops (a multiply and an add per element of
-    q . k and of p . v, and 4 a score for the softmax's max, exp, sum and
-    scale) over the float32 rate."""
-    rows = int(kv_len.sum())
-    b = kv_len.numel()
-    nbytes = rows * hkv * 2 * dh * kv_bytes + 2 * b * h * dh * 4 + b * 4
-    flops = rows * h * (4 * dh + 4)
+    of its bytes over the HBM rate and its flops over the float32 rate,
+    both from ``window_attention.attention_work`` (the op walker's count
+    of the kernel) at the call's valid rows."""
+    from repro_torch.kernels.window_attention import attention_work
+    nbytes, flops = attention_work(int(kv_len.sum()), kv_len.numel(), h,
+                                   hkv, dh, kv_bytes)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -3595,24 +3607,12 @@ def dist_layers():
 
 def plan_report(np, plan, edges, label, t_part, t_plan):
     """Log a plan's shapes and the bytes a chromatic superstep moves
-    (4-byte vertex rows, the backflow's 8-byte rows): real entries, and
-    the uniform buffers the exchanges carry."""
-    from repro_torch.core.partition import cut_edges
-    ghosts = ((plan.local_to_global >= 0) & ~plan.owned_mask).sum(axis=1)
-    real_v, real_t = int(plan.send_mask.sum()), int(plan.tsend_mask.sum())
-    m, c = plan.M, plan.n_colors
-    buf_v, buf_t = c * m * m * plan.Hv * 4, c * m * m * plan.Hg * 8
+    (``launch.graph_dryrun.plan_summary``) with its host times."""
+    from repro_torch.launch.graph_dryrun import plan_summary
+    text, sizes = plan_summary(plan, edges)
     log(f"{label}: partition {t_part:.1f} s and ShardPlan.build {t_plan:.1f}"
-        f" s on the host; R {plan.R} rows a shard (owned at most "
-        f"{int(plan.owned_mask.sum(axis=1).max())}), ghosts a shard "
-        f"{ghosts.tolist()}, cut edges {cut_edges(plan.assignment, edges)}"
-        f", E_loc {plan.E_loc}, Cmax {plan.Cmax}, Hv {plan.Hv}, Hg "
-        f"{plan.Hg}, sliced slots a shard {plan.sliced_slots} ("
-        f"{plan.bucket_launches}); a superstep's exchanges: ghost push "
-        f"{4 * real_v} bytes real / {buf_v} in buffers, backflow "
-        f"{8 * real_t * c} real / {buf_t} in buffers")
-    return dict(real_bytes=4 * real_v + 8 * real_t * c,
-                buffer_bytes=buf_v + buf_t)
+        f" s on the host; {text}")
+    return sizes
 
 
 def same_as_single(torch, res, single, key, label):
@@ -5492,6 +5492,194 @@ def serve_trained(torch, ctx, cfg, ckpt):
     return forced + n_launch
 
 
+# ----------------------------------------------------------------------
+# Phase 23: the tooling (the dry run against the card, the graph dry run)
+# ----------------------------------------------------------------------
+
+TOOL_PEAK_TOL = 0.10           # the dry run's peak vs the card's, relative
+GRAPH_DRY = (16_384, 256, 4)   # graph_dryrun's defaults: vertices, shards,
+                               # supersteps
+GRAPH_TOTAL_RTOL = 1e-6        # a float32 sum's partials merged in order
+
+
+def tool_runs():
+    """The real steps of phases 22 (b, c), 10 (decode_32k) and 21 (a-e):
+    ``(label, arch, config changes, kind, batch, sequence)``."""
+    runs = [(f"22{label}", arch, changes, "train", batch, seq)
+            for label, arch, changes, batch, seq, _ in TRAIN_RUNS]
+    shape, batch, ctx_len = SERVE_CASES[0]
+    runs.append((f"10 {shape}", SERVE_ARCH, {}, "decode", batch, ctx_len))
+    runs += [(f"21{label}", arch, changes, "decode", batch, FAMILY_CTX)
+             for label, arch, changes, batch, _, _ in FAMILY_RUNS]
+    return runs
+
+
+def phase_tooling(torch, ctx):
+    """(a) Each of ``tool_runs``' steps dry-run on meta at the one-card
+    mesh, then run on the card: its peak against the dry run's, and the
+    op walker's count of the real step against the dry run's; (b) the
+    256-shard graph dry run against one shard."""
+    counts = ctx.setdefault("launches", {})
+    release(torch, ctx)
+    rows = []
+    for run in tool_runs():
+        row, n_launch = tool_run(torch, ctx, *run)
+        rows.append(row)
+        counts["window_attention"] = (counts.get("window_attention", 0)
+                                      + n_launch)
+        release(torch, ctx)
+    ctx["tool_rows"] = rows
+    counts["ell_spmv"] = counts.get("ell_spmv", 0) + graph_dry_run(torch,
+                                                                   ctx)
+
+
+def _storage_bytes(tensors):
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def tool_run(torch, ctx, label, arch, changes, kind, batch, seq):
+    """One run of phase 23 (a); returns its row and window_attention
+    launches."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.window_attention import window_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import one_card_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import op_walk
+    from repro_torch.serve import engine
+    from repro_torch.train.steps import (make_serve_step, make_train_step,
+                                         param_dict)
+    dev = ctx["dev"]
+    cfg = family_cfg(arch, changes)
+    shape = InputShape(f"{kind} {batch}x{seq}", seq, batch, kind)
+    opt = adamw.AdamWConfig()
+    t0 = time.perf_counter()
+    row = dryrun.dry_run(cfg, shape, one_card_mesh(),
+                         name=f"{label} {arch}", verbose=False, opt_cfg=opt)
+    t_dry = time.perf_counter() - t0
+
+    params = model.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if kind == "train":
+        args = (params, adamw.init(param_dict(params)),
+                pipeline.make_batch(cfg, batch, seq, device=dev))
+        step = make_train_step(cfg, opt)
+    else:
+        tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        args = (params, tok, engine.init_cache(cfg, batch, seq, device=dev))
+        step = make_serve_step(cfg)
+    out = step(*args)                   # warms up
+    torch.cuda.synchronize()
+    del out
+    arg_bytes = _storage_bytes(dryrun._tensors(args))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    window_attention.launches = 0
+    t1 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    n_launch = window_attention.launches
+    measured = arg_bytes + torch.cuda.max_memory_allocated() - base
+    del out
+    walked = dryrun.walk(lambda: step(*args), args)
+    torch.cuda.synchronize()
+    cost = op_walk.cost_from_records(walked.trace)
+    mem = row["memory"]
+    predicted = mem["peak_gb"] * 1e9
+    err = abs(predicted - measured) / measured
+    log(f"({label}) {arch} ({', '.join(f'{k} {v}' for k, v in changes.items()) or 'whole'}) "
+        f"{kind}, batch {batch} x {seq}: dry run on meta {t_dry:.1f} s, "
+        f"{row['ops']} ops; peak: dry run {predicted / 2**30:.3f} GiB "
+        f"(arguments {mem['argument_gb'] * 1e9 / 2**30:.3f} + temp "
+        f"{mem['temp_gb'] * 1e9 / 2**30:.3f}), card {measured / 2**30:.3f} "
+        f"GiB (arguments {arg_bytes / 2**30:.3f} + max_memory_allocated "
+        f"above them {(measured - arg_bytes) / 2**30:.3f}), off by "
+        f"{100 * err:.4f} % ({predicted - measured:+.0f} bytes); flops: dry "
+        f"run {row['hlo_flops']:.6e}, the "
+        f"walker on the card {cost.flops:.6e}; bytes: dry run "
+        f"{row['hlo']['hbm_bytes']:.6e}, card {cost.bytes:.6e}; walker's "
+        f"peak on the card {walked.peak_bytes / 2**30:.3f} GiB temp; "
+        f"roofline t_compute {1e3 * row['t_compute_s']:.3f} ms, t_memory "
+        f"{1e3 * row['t_memory_s']:.3f} ms ({row['bottleneck']}), measured "
+        f"{ms:.2f} ms a step ({row['t_memory_s'] * 1e3 / ms:.3f} of it the "
+        f"memory term); model flops {row['model_flops']:.4e} (usefulness "
+        f"{row['usefulness']:.3f}); window_attention launches {n_launch}")
+    if cost.flops != row["hlo_flops"]:
+        raise AssertionError(f"({label}) the dry run counts "
+                             f"{row['hlo_flops']} flops, the real step "
+                             f"{cost.flops}")
+    if not err <= TOOL_PEAK_TOL:
+        raise AssertionError(f"({label}) dry-run peak {predicted} vs card "
+                             f"{measured}: {100 * err:.1f} % apart")
+    if kind == "decode" and cfg.arch_type != "ssm" and n_launch == 0:
+        raise AssertionError(f"({label}) no window_attention launch")
+    row.update(label=label, card_peak_bytes=measured, card_ms=ms,
+               card_flops=cost.flops, card_bytes=cost.bytes)
+    del params, args, walked
+    return row, n_launch
+
+
+def graph_dry_run(torch, ctx):
+    """Phase 23 (b): ``graph_dryrun`` at its defaults on the card, B1's
+    launches set to 0 just before the supersteps and read just after,
+    against the same supersteps on one shard: ranks and updates bitwise,
+    ``total_rank`` within ``GRAPH_TOTAL_RTOL`` (the sync adds the
+    shards' partial sums in shard order, one float32 rounding a shard,
+    where one shard sums its rows at once); returns the launches."""
+    from repro_torch.kernels.ell_spmv import ell_spmv
+    from repro_torch.launch import graph_dryrun
+    from repro_torch.launch.graph_dryrun import plan_summary
+    dev = ctx["dev"]
+    nv, shards, steps = GRAPH_DRY
+    runs = {}
+    for m in (shards, 1):
+        eng, edges, t_host = graph_dryrun.build(nv, m, steps, dev)
+        torch.cuda.synchronize()
+        ell_spmv.launches = 0
+        t0 = time.perf_counter()
+        res, updates, ms = graph_dryrun.run_supersteps(eng, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[m] = (res, updates, ell_spmv.launches)
+        if m > 1:
+            log(f"(b) graph dry run: {nv} vertices, {len(edges)} edges, "
+                f"{m} shards, R {eng.plan.R}, Hv {eng.plan.Hv}, colors "
+                f"{eng.plan.n_colors}; host set-up (graph, partition, plan, "
+                f"engine) {t_host:.1f} s; {plan_summary(eng.plan, edges)[0]}")
+        log(f"(b) {m} shard(s): {steps} supersteps in {wall:.2f} s, ms a "
+            f"superstep {[round(t, 1) for t in ms]}, updates {updates}, "
+            f"ell_spmv launches {ell_spmv.launches}, total_rank "
+            f"{float(res['globals']['total_rank'])!r}; host set-up "
+            f"{t_host:.1f} s")
+        del eng
+    (r_m, u_m, n_m), (r_1, u_1, _) = runs[shards], runs[1]
+    diff = int((r_m["vertex_data"]["rank"] != r_1["vertex_data"]["rank"])
+               .sum())
+    t_m = float(r_m["globals"]["total_rank"])
+    t_1 = float(r_1["globals"]["total_rank"])
+    log(f"(b) {shards} shards vs one: {diff} ranks differ; n_updates "
+        f"{r_m['n_updates']} / {r_1['n_updates']}; total_rank {t_m!r} / "
+        f"{t_1!r} (relative {abs(t_m - t_1) / abs(t_1):.2e}, limit "
+        f"{GRAPH_TOTAL_RTOL}), the sum of the {shards}-shard ranks in "
+        f"float64 {float(r_m['vertex_data']['rank'].double().sum())!r}")
+    if n_m == 0:
+        raise AssertionError("(b) the graph dry run launched no ell_spmv")
+    if diff or r_m["n_updates"] != r_1["n_updates"] or u_m != u_1:
+        raise AssertionError("(b) the 256-shard graph dry run's ranks or "
+                             "updates are not bitwise the one-shard run's")
+    if not abs(t_m - t_1) <= GRAPH_TOTAL_RTOL * abs(t_1):
+        raise AssertionError(f"(b) total_rank {t_m} vs one shard's {t_1}")
+    return n_m
+
+
 def main() -> int:
     started = time.perf_counter()
     import torch
@@ -5584,7 +5772,8 @@ def main() -> int:
                       phase_families),
                      ("phase 22 training, reduced gates",
                       phase_train_parity),
-                     ("phase 22 training on the card", phase_train)):
+                     ("phase 22 training on the card", phase_train),
+                     ("phase 23 tooling", phase_tooling)):
         log(f"--- {name}")
         t0 = time.perf_counter()
         try:

@@ -1,11 +1,14 @@
 """Deterministic synthetic data (``repro.data.pipeline`` in PyTorch):
-the language models' training batches (``make_batch``) and live-graph
-mutation traffic for online serving (DESIGN.md §13).
+the language models' training batches (``make_batch``), the dry run's
+input specs, and live-graph mutation traffic for online serving
+(DESIGN.md §13).
 
-Both draw on the host with numpy, by the reference's seeded
-``default_rng`` calls in the reference's order, so a batch or a stream
-is bitwise the reference's.  The dry run's input specs wait for the
-tooling slice.
+Batches and streams draw on the host with numpy, by the reference's
+seeded ``default_rng`` calls in the reference's order, so a batch or a
+stream is bitwise the reference's.  The specs (``train_input_specs``,
+``decode_input_specs``, ``param_specs_struct``) are tensors on the
+``meta`` device: the reference's keys, shapes and dtypes, and no
+memory behind them (the counterpart of its ``ShapeDtypeStruct``s).
 """
 from __future__ import annotations
 
@@ -49,6 +52,45 @@ def make_batch(cfg, batch: int, seq_len: int, seed: int = 0, device=None):
         out[name] = up(rng.normal(size=(batch, front, cfg.d_model)),
                        np.float32)
     return out
+
+
+# ----------------------------------------------------------------------
+# Dry-run specs (meta tensors: shapes and dtypes, no memory)
+# ----------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def train_input_specs(cfg, shape) -> dict:
+    """A training (or, without ``labels``, prefill) batch of ``shape`` as
+    meta tensors: int32 ``tokens`` and ``labels`` [B, text], plus float32
+    ``frames`` (audio) or ``patches`` (vlm) [B, front, d]."""
+    b = shape.global_batch
+    front, txt = _split_train_seq(cfg, shape.seq_len)
+    out = {"tokens": torch.empty((b, txt), dtype=torch.int32, device=META),
+           "labels": torch.empty((b, txt), dtype=torch.int32, device=META)}
+    if cfg.arch_type in ("audio", "vlm"):
+        name = "frames" if cfg.arch_type == "audio" else "patches"
+        out[name] = torch.empty((b, front, cfg.d_model), dtype=torch.float32,
+                                device=META)
+    return out
+
+
+def decode_input_specs(cfg, shape):
+    """``(token, ServeState)`` for ``serve_step`` at ``shape``, on meta:
+    int32 ``token`` [B, 1] and ``serve.engine.init_cache``'s state."""
+    from repro_torch.serve import engine as serve_engine
+    b = shape.global_batch
+    token = torch.empty((b, 1), dtype=torch.int32, device=META)
+    return token, serve_engine.init_cache(cfg, b, shape.seq_len,
+                                          device=META)
+
+
+def param_specs_struct(cfg, dtype=torch.bfloat16):
+    """The whole parameter tree as a ``Model`` on meta (nothing drawn,
+    nothing allocated)."""
+    from repro_torch.models.model import Model
+    return Model(cfg, None, dtype, META)
 
 
 class MutationBatch(NamedTuple):

@@ -16,7 +16,12 @@ place.  ``decode_window_attention`` is the reference's signature
 
 On a CUDA tensor the wrapper launches ``csrc/window_attention.cu``
 (built at first use, see ``_build``) or raises; on a CPU tensor it runs
-``kernels.ref.decode_window_attention_ref``, the plain version.  Both
+``kernels.ref.decode_window_attention_ref``, the plain version; on a
+meta tensor (the dry run) it returns an empty float32 ``[B, H, dh]``
+and computes nothing.  Inside ``roofline.op_walk.OpWalk`` a call is
+counted as the kernel's own work (``attention_work`` at the full
+window: the dry run's caches are full), whichever of the three ran.
+The CUDA kernel and the plain version
 compute in float32 and return float32; they are not bitwise equal (the
 kernel's online softmax and its sums run in another order, and a bf16
 cache goes through the tensor cores with q and p as two bf16 terms
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_window_attention_ref
+from repro_torch.roofline import op_walk
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DH = 256
@@ -199,6 +205,17 @@ def _check_args(q, k, v, kv_len):
                          f"{sorted(map(str, devices))}")
 
 
+def attention_work(rows: int, b: int, h: int, hkv: int, dh: int,
+                   kv_bytes: int) -> tuple[int, int]:
+    """``(bytes, flops)`` of one call over ``rows`` valid cache rows in
+    all (the sum of kv_len): every valid K and V row read once per KV
+    head, q in float32 and kv_len read once, the float32 output written
+    once; a multiply and an add per element of q . k and of p . v, and 4
+    a score for the softmax's max, exp, sum and scale."""
+    nbytes = rows * hkv * 2 * dh * kv_bytes + 2 * b * h * dh * 4 + b * 4
+    return nbytes, rows * h * (4 * dh + 4)
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """Decode attention over a KV cache; returns float32 ``[B, H, dh]``.
@@ -210,11 +227,26 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window_attention.launches`` counts the CUDA kernel's launches.
     """
     _check_args(q, k, v, kv_len)
+    if not op_walk.walking():
+        return _dispatch(q, k, v, kv_len)
+    b, h, dh = q.shape
+    nbytes, flops = attention_work(b * k.shape[1], b, h, k.shape[2], dh,
+                                   k.element_size())
+    with op_walk.kernel("window_attention", flops, nbytes) as call:
+        out = _dispatch(q, k, v, kv_len)
+        call.outputs(out)
+    return out
+
+
+def _dispatch(q, k, v, kv_len) -> torch.Tensor:
     device = q.device
     if device.type == "cpu":
         return decode_window_attention_ref(q, k, v, kv_len)
+    if device.type == "meta":
+        return torch.empty(q.shape, dtype=torch.float32, device=device)
     if device.type != "cuda":
-        raise ValueError(f"window_attention runs on cuda or cpu, not {device}")
+        raise ValueError(f"window_attention runs on cuda, cpu or meta, not "
+                         f"{device}")
     b, h, dh = q.shape
     w, hkv = k.shape[1], k.shape[2]
     if dh > _MAX_DH:

@@ -16,8 +16,10 @@ record kinds:
   "wall_us": t}``; fits the per-row ``sync_cost_us``.
 
 The reference may nest XLA HLO op counts under an ``"hlo"`` key
-(``hlo_counts``).  The port has no HLO to walk, so its records carry no
-``"hlo"`` key unless a caller hands counts to ``record_launch``.
+(``hlo_counts``).  The port has no HLO to walk; its dry run nests the op
+walker's counts there (``roofline.op_walk.Cost.counts``), and its
+launch records carry no ``"hlo"`` key unless a caller hands counts to
+``record_launch``.
 
 Artifacts go to ``results/torch/`` (or ``$REPRO_TORCH_RESULTS_DIR``),
 never over the reference's ``results/TRACE_cpu.json``.
@@ -43,9 +45,12 @@ def results_dir() -> pathlib.Path:
 
 def hlo_counts(cost) -> dict:
     """Project a cost object (``flops`` / ``bytes`` / ``coll_bytes``
-    attributes) onto the shared trace schema's ``"hlo"`` dict."""
+    attributes) onto the shared trace schema's ``"hlo"`` dict; a
+    ``coll_bytes`` of None (not counted: the dry run on a production
+    mesh) stays None."""
+    coll = cost.coll_bytes
     d = {"flops": int(cost.flops), "hbm_bytes": int(cost.bytes),
-         "coll_bytes": int(cost.coll_bytes)}
+         "coll_bytes": None if coll is None else int(coll)}
     br = getattr(cost, "coll_breakdown", None)
     if br:
         d["coll_breakdown"] = {k: int(v) for k, v in dict(br).items()}

@@ -1366,3 +1366,76 @@ def test_training_on_card_equals_cpu(cuda, arch, monkeypatch):
         for n, p in cpu.named_parameters():
             assert _normwise(gp[n].detach() - before[1][n],
                              p.detach() - before[0][n]) <= 1e-3, (i, n)
+
+
+# ----------------------------------------------------------------------
+# the dry run's meta form against the card
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_walked_attention_launches_and_counts_its_work(cuda, dtype):
+    """Inside the op walker B4 still launches on the card, and counts
+    ``attention_work`` at the full window, as its meta form does."""
+    from repro_torch.roofline import op_walk
+    b, h, hkv, w, dh = 2, 8, 2, 512, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, h, dh), generator=gen, device=cuda)
+    k = torch.randn((b, w, hkv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, w, hkv, dh), generator=gen, device=cuda).to(dtype)
+    kvl = torch.tensor([w, 300], dtype=torch.int32, device=cuda)
+    before = wa.window_attention.launches
+    counted = []
+    for dev in (cuda, torch.device("meta")):
+        args = [t.to(dev) for t in (q, k, v, kvl)]
+        with op_walk.OpWalk() as walk:
+            out = wa.window_attention(*args)
+        c = walk.cost()
+        counted.append((c.flops, c.bytes, walk.peak_bytes))
+        assert out.shape == (b, h, dh) and out.device.type == dev.type
+    assert wa.window_attention.launches == before + 1
+    assert counted[0] == counted[1]
+    nbytes, flops = wa.attention_work(b * w, b, h, hkv, dh,
+                                      k.element_size())
+    assert counted[0][:2] == (flops, nbytes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "falcon-mamba-7b",
+                                  "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_walked_step_on_card_equals_the_dry_run(cuda, arch, kind):
+    """A reduced step walked on the card counts what the dry run counts
+    on meta: the same FLOPs, the same bytes, the same peak."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import pipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.roofline import op_walk
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.train.steps import (make_prefill_step, make_serve_step,
+                                         make_train_step, param_dict)
+    cfg = configs.get(arch).reduced()
+    shape = InputShape("s", 128, 2, kind)
+    meta, _ = dryrun.walk_step(cfg, shape, extrapolate_prefill=False)
+    params = model_lib.init_params(cfg, seed=0, device=cuda)
+    if kind == "decode":
+        token = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+        state = serve_engine.init_cache(cfg, 2, 128, device=cuda)
+        args = (params, token, state)
+        step = make_serve_step(cfg)
+    else:
+        batch = pipeline.make_batch(cfg, 2, 128, device=cuda)
+        if kind == "prefill":
+            batch.pop("labels")
+            args, step = (params, batch), make_prefill_step(cfg)
+        else:
+            args = (params, adamw.init(param_dict(params)), batch)
+            step = make_train_step(cfg, adamw.AdamWConfig())
+    card = dryrun.walk(lambda: step(*args), args)
+    cm, cc = (op_walk.cost_from_records(w.trace) for w in (meta, card))
+    assert cc.flops == cm.flops
+    assert cc.bytes == pytest.approx(cm.bytes, rel=1e-6)
+    assert card.peak_bytes == pytest.approx(meta.peak_bytes, rel=1e-6)

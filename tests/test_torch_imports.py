@@ -76,3 +76,14 @@ def test_the_training_modules_are_scanned():
                 "interop.py"):
         assert pkg / rel in FILES, rel
     assert ROOT / "examples" / "train_lm_torch.py" in FILES
+
+
+def test_the_tooling_modules_are_scanned():
+    """The dry run and its parts (meshes, sharding rules, the op walker,
+    the roofline, reanalysis) and the graph dry run stand alone too."""
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("launch/mesh.py", "launch/shardctx.py", "launch/sharding.py",
+                "launch/dryrun.py", "launch/graph_dryrun.py",
+                "roofline/op_walk.py", "roofline/analysis.py",
+                "roofline/reanalyze.py", "data/pipeline.py"):
+        assert pkg / rel in FILES, rel
