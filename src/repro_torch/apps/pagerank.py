@@ -59,12 +59,16 @@ def edge_weights(edges: np.ndarray, n_vertices: int) -> np.ndarray:
         np.float32)
 
 
-def make_graph(edges: np.ndarray, n_vertices: int, *,
-               hub_split: bool = False, w_cap: int | None = None,
+def make_graph(edges: np.ndarray, n_vertices: int, *, seed: int = 0,
+               max_deg: int | None = None, hub_split: bool = False,
+               w_cap: int | None = None, edge_locality: bool = False,
                colors: np.ndarray | None = None, slack: int = 0,
                edge_capacity: int | None = None,
                device=None) -> DataGraph:
     """A colored PageRank data graph with symmetric normalized weights.
+    ``max_deg`` caps the stored width and ``edge_locality`` orders the
+    edges for locality, as ``DataGraph.from_edges`` takes them; ``seed``
+    is unused, as in the reference.
     ``hub_split=True`` (or an explicit ``w_cap=``) stores rows wider than
     ``w_cap`` as virtual rows (``DataGraph.from_edges``).  The colors
     are greedy (the reference's) unless ``colors`` gives a coloring the
@@ -76,7 +80,8 @@ def make_graph(edges: np.ndarray, n_vertices: int, *,
         n_vertices, edges,
         vertex_data={"rank": np.ones(n_vertices, np.float32)},
         edge_data={"w": edge_weights(edges, n_vertices)},
-        edge_locality=False,
+        max_deg=max_deg,
+        edge_locality=edge_locality,
         hub_split=hub_split,
         w_cap=w_cap,
         slack=slack,
@@ -110,16 +115,19 @@ def refreshed_weights(serving, vertices):
 
 
 def build(edges: np.ndarray, n_vertices: int, *, eps: float = 1e-4,
-          tau: int = 1, hub_split: bool = False, w_cap: int | None = None,
-          colors: np.ndarray | None = None, slack: int = 0,
-          edge_capacity: int | None = None, device=None):
+          seed: int = 0, max_deg: int | None = None, tau: int = 1,
+          hub_split: bool = False, w_cap: int | None = None,
+          edge_locality: bool = False, colors: np.ndarray | None = None,
+          slack: int = 0, edge_capacity: int | None = None, device=None):
     """Uniform facade triple ``(graph, update, syncs)`` for
     ``repro_torch.api.run``; the syncs are the paper's §3.3 examples
     (second most popular page + total rank), refreshed every ``tau``
-    supersteps.  ``hub_split``, ``w_cap``, ``colors``, ``slack`` and
-    ``edge_capacity`` as in ``make_graph``."""
-    graph = make_graph(edges, n_vertices, hub_split=hub_split, w_cap=w_cap,
-                       colors=colors, slack=slack,
+    supersteps.  ``seed``, ``max_deg``, ``hub_split``, ``w_cap``,
+    ``edge_locality``, ``colors``, ``slack`` and ``edge_capacity`` as in
+    ``make_graph``."""
+    graph = make_graph(edges, n_vertices, seed=seed, max_deg=max_deg,
+                       hub_split=hub_split, w_cap=w_cap,
+                       edge_locality=edge_locality, colors=colors, slack=slack,
                        edge_capacity=edge_capacity, device=device)
     syncs = (second_most_popular_sync(tau), total_rank_sync(tau))
     return graph, make_update(eps), syncs

@@ -1,8 +1,7 @@
 """Vertex colorings for the chromatic engine (paper §4.2.1).
 
-A copy of ``repro.core.coloring``'s greedy, single and bipartite colorings:
-the same first-fit rule in the same largest-degree-first order, so the
-colors are identical.  Host-side numpy; the adjacency is a CSR built
+A copy of ``repro.core.coloring``'s colorings: the same first-fit rule
+in the same largest-degree-first order, so the colors are identical.  Host-side numpy; the adjacency is a CSR built
 with numpy instead of Python lists of lists, which changes the speed
 and not the result (the set of colors a vertex sees does not depend on
 the order its neighbours are listed in).
@@ -38,6 +37,32 @@ def greedy_coloring(n_vertices: int, edges: np.ndarray,
     colors = [-1] * n_vertices
     for v in np.asarray(order).tolist():
         used = {colors[u] for u in adj[ptr[v]:ptr[v + 1]]}
+        c = 0
+        while c in used:
+            c += 1
+        colors[v] = c
+    return np.asarray(colors, dtype=np.int32)
+
+
+def distance2_coloring(n_vertices: int, edges: np.ndarray) -> np.ndarray:
+    """Coloring of the square graph: no vertex shares a color with any
+    neighbour at distance 1 or 2, which gives the *full* consistency
+    model under the chromatic engine (paper §4.2.1).  The reference's
+    adjacency is a set a vertex, so a duplicate edge counts once toward
+    the largest-degree-first order: the adjacency here is deduplicated
+    (``greedy_coloring`` keeps duplicates, as the reference's lists)."""
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    pairs = np.unique(np.concatenate([edges, edges[:, ::-1]]), axis=0)
+    indptr, nbrs, deg = _csr(n_vertices, pairs[pairs[:, 0] < pairs[:, 1]])
+    ptr = indptr.tolist()
+    adj = nbrs.tolist()
+    colors = [-1] * n_vertices
+    for v in np.argsort(-deg, kind="stable").tolist():
+        used = set()
+        for u in adj[ptr[v]:ptr[v + 1]]:
+            used.add(colors[u])
+            used.update(colors[w] for w in adj[ptr[u]:ptr[u + 1]] if w != v)
         c = 0
         while c in used:
             c += 1

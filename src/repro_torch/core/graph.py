@@ -1005,6 +1005,16 @@ class DataGraph:
             n_colors=int(colors.max()) + 1 if colors.size else 1,
         )
 
+    def replace_data(self, vertex_data=None,
+                     edge_data=None) -> "DataGraph":
+        """The graph with new vertex and/or edge data (a part left None
+        is kept)."""
+        return dataclasses.replace(
+            self,
+            vertex_data=(self.vertex_data if vertex_data is None
+                         else vertex_data),
+            edge_data=self.edge_data if edge_data is None else edge_data)
+
     def to(self, device) -> "DataGraph":
         """The same graph with every tensor on ``device``."""
         device = torch.device(device)

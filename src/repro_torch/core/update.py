@@ -108,6 +108,18 @@ def slot_fold_sum(vals: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def masked_neighbor_sum(weights: torch.Tensor, values: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """sum_j mask * weights[:, j] * values[:, j] in float32 through the
+    kernel's accumulation (``weighted_slot_fold``); values [B, D] or
+    [B, D, F]."""
+    w = torch.where(mask, weights, 0.0).float()
+    squeeze = values.dim() == 2
+    vals = (values[..., None] if squeeze else values).float()
+    y = weighted_slot_fold(w, vals)
+    return y[..., 0] if squeeze else y
+
+
 def aggregator_update(feature, weight, combine,
                       consistency: Consistency = Consistency.EDGE,
                       name: str = "aggregate") -> UpdateFn:

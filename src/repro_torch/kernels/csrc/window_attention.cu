@@ -86,7 +86,12 @@
 // ticket merges the splits, o = sum_s e^(m_s - M) acc_s / sum_s
 // e^(m_s - M) l_s, and zeroes the ticket again.  A split that starts at
 // or past kv_len returns at once and draws no ticket, so every split
-// merged has a finite m (never e^(-inf - -inf)).  The partials' bytes
+// merged has a finite m (never e^(-inf - -inf)).  The partial entry
+// (window_attention_partial_launch) ends the same way but leaves the
+// merged row unnormalised, o = sum_s e^(m_s - M) acc_s, beside its M and
+// L = sum_s e^(m_s - M) l_s: the float32 partial of a row-sharded cache
+// that the ranks then merge; a request with no valid row gives o = 0,
+// m = -inf, l = 0.  The partials' bytes
 // stay under 5 % of the K/V bytes.  The TPU kernel's sequential grid over
 // 512-row tiles, which carried (m, l, acc) from one grid step to the
 // next, becomes the ring inside a block plus the ticketed merge across
@@ -133,10 +138,13 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // Where a launch writes: partials acc [B, H, n_splits, dh], m and l
-// [B, H, n_splits]; out [B, H, dh]; one ticket per (request, block row).
+// [B, H, n_splits]; out [B, H, dh]; one ticket per (request, block row);
+// for the partial entry the merged row's m and l [B, H] (row_m, row_l),
+// and out unnormalised (both null otherwise).
 struct Out {
   float *acc, *m, *l, *out;
   int32_t* ticket;
+  float *row_m, *row_l;
 };
 
 // The block's (request, KV head, chunk of query heads) and split.
@@ -171,7 +179,13 @@ __device__ void finish(const float (*sm_m)[R], const float (*sm_l)[R],
       l += f * sm_l[w][r];
     }
     const int64_t bh = gr.bh0 + r;
-    if (direct) {
+    if (direct && o.row_m) {
+      o.out[bh * dh + e] = a;
+      if (e == 0) {
+        o.row_m[bh] = mx;
+        o.row_l[bh] = l;
+      }
+    } else if (direct) {
       o.out[bh * dh + e] = a / l;
     } else {
       o.acc[(bh * ns + gr.split) * dh + e] = a;
@@ -207,7 +221,13 @@ __device__ void finish(const float (*sm_m)[R], const float (*sm_l)[R],
       ls += f * __ldcg(pl + s);
     }
     ls = warp_sum(ls);
-    if (lane == 0) lsum[r] = ls;
+    if (lane == 0) {
+      lsum[r] = ls;
+      if (o.row_m) {
+        o.row_m[gr.bh0 + r] = mx;
+        o.row_l[gr.bh0 + r] = ls;
+      }
+    }
   }
   __syncthreads();
   if ((dh & 3) == 0) {                  // 16 bytes of acc a load
@@ -228,7 +248,7 @@ __device__ void finish(const float (*sm_m)[R], const float (*sm_l)[R],
         a.z += f * x.z;
         a.w += f * x.w;
       }
-      const float l = lsum[r];
+      const float l = o.row_m ? 1.f : lsum[r];
       reinterpret_cast<float4*>(o.out + bh * dh)[c] =
           make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
     }
@@ -242,7 +262,7 @@ __device__ void finish(const float (*sm_m)[R], const float (*sm_l)[R],
 #pragma unroll 8
       for (int s = 0; s < nv; ++s)
         a += wr[s] * __ldcg(pa + static_cast<int64_t>(s) * dh);
-      o.out[bh * dh + e] = a / lsum[r];
+      o.out[bh * dh + e] = o.row_m ? a : a / lsum[r];
     }
   }
   if (tid == 0) o.ticket[gr.tix] = 0;
@@ -267,10 +287,16 @@ __device__ __forceinline__ bool locate(const int32_t* kv_len, int H,
   gr.split = blockIdx.y;
   gr.n_splits = n_splits;
   gr.dh = dh;
-  if (kvl <= 0) {                       // outside the contract: zeros
-    if (gr.split == 0)
+  if (kvl <= 0) {                       // no row: zeros (m = -inf, l = 0)
+    if (gr.split == 0) {
       for (int i = threadIdx.x; i < gr.nr * dh; i += kThreads)
         o.out[gr.bh0 * dh + i] = 0.f;
+      if (o.row_m)
+        for (int i = threadIdx.x; i < gr.nr; i += kThreads) {
+          o.row_m[gr.bh0 + i] = -INFINITY;
+          o.row_l[gr.bh0 + i] = 0.f;
+        }
+    }
     return false;
   }
   start = gr.split * chunk;
@@ -823,16 +849,18 @@ extern "C" {
 // (acc, then m, then l); ticket: int32 [>= B * H], zero, and zero again
 // when the launch ends (one launch at a time may use it); out: float32
 // [B, H, dh].  Split s covers rows [s * chunk, (s + 1) * chunk).  Takes
-// 1 <= dh <= 256, H a multiple of Hkv and n_splits <= 256.  Returns the
-// cudaError_t of the launch (0 on success).
-int window_attention_launch(const void* q, const void* k, const void* v,
-                            const void* kv_len, void* part, void* ticket,
-                            void* out, int32_t B, int32_t H, int32_t Hkv,
-                            int32_t W, int32_t dh, int32_t chunk,
-                            int32_t n_splits, int64_t ksb, int64_t ksw,
-                            int64_t ksh, int64_t vsb, int64_t vsw,
-                            int64_t vsh, int32_t kv_dtype, int32_t vec,
-                            void* stream) {
+// 1 <= dh <= 256, H a multiple of Hkv and n_splits <= 256.  row_m,
+// row_l: float32 [B, H], or both null.  Given, the launch is the
+// partial entry: out is each row's unnormalised merged sum, row_m its
+// running max and row_l its sum of weights, and kv_len may be 0 (o = 0,
+// m = -inf, l = 0).  Returns the cudaError_t of the launch (0 on
+// success).
+int window_attention_partial_launch(
+    const void* q, const void* k, const void* v, const void* kv_len,
+    void* part, void* ticket, void* out, int32_t B, int32_t H, int32_t Hkv,
+    int32_t W, int32_t dh, int32_t chunk, int32_t n_splits, int64_t ksb,
+    int64_t ksw, int64_t ksh, int64_t vsb, int64_t vsw, int64_t vsh,
+    int32_t kv_dtype, int32_t vec, void* row_m, void* row_l, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (dh < 1 || dh > kMaxDh || Hkv < 1 || H % Hkv != 0 || W < 1 ||
       chunk < 1 || n_splits < 1 || n_splits > kMaxSplits ||
@@ -841,13 +869,29 @@ int window_attention_launch(const void* q, const void* k, const void* v,
   float* p = static_cast<float*>(part);
   const int64_t n_part = static_cast<int64_t>(B) * H * n_splits;
   const Out o{p, p + n_part * dh, p + n_part * (dh + 1),
-              static_cast<float*>(out), static_cast<int32_t*>(ticket)};
+              static_cast<float*>(out), static_cast<int32_t*>(ticket),
+              static_cast<float*>(row_m), static_cast<float*>(row_l)};
   const Args a{q, k, v, kv_len, o, B, H, Hkv, W, dh, chunk, n_splits, vec,
                {ksb, ksw, ksh}, {vsb, vsw, vsh},
                static_cast<cudaStream_t>(stream)};
   if (kv_dtype == 0) return dispatch_f32(a);
   if (kv_dtype == 1) return dispatch_mma(a);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The whole attention: window_attention_partial_launch without row_m
+// and row_l, out normalised.
+int window_attention_launch(const void* q, const void* k, const void* v,
+                            const void* kv_len, void* part, void* ticket,
+                            void* out, int32_t B, int32_t H, int32_t Hkv,
+                            int32_t W, int32_t dh, int32_t chunk,
+                            int32_t n_splits, int64_t ksb, int64_t ksw,
+                            int64_t ksh, int64_t vsb, int64_t vsw,
+                            int64_t vsh, int32_t kv_dtype, int32_t vec,
+                            void* stream) {
+  return window_attention_partial_launch(
+      q, k, v, kv_len, part, ticket, out, B, H, Hkv, W, dh, chunk, n_splits,
+      ksb, ksw, ksh, vsb, vsw, vsh, kv_dtype, vec, nullptr, nullptr, stream);
 }
 
 // For a bf16 launch at this dh: the tensor-core body's registers a

@@ -42,3 +42,26 @@ def decode_window_attention_ref(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrw,bwgd->bgrd", p, v.to(torch.float32))
     return o.reshape(b, h, dh)
+
+
+def decode_window_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor,
+                                        kv_len: torch.Tensor):
+    """The partial of ``decode_window_attention_ref`` over the first
+    ``kv_len`` rows (0 allowed), in float32: ``(o [B, H, dh], m [B, H],
+    l [B, H])`` with m the scores' max, l = sum_t e^(s_t - m) and o =
+    sum_t e^(s_t - m) v_t, unnormalised; a request with no valid row
+    gives o = 0, m = -inf, l = 0.  ``o / l`` is the attention."""
+    b, h, dh = q.shape
+    w, hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / (dh ** 0.5)
+    qg = q.to(torch.float32).reshape(b, hkv, h // hkv, dh)
+    s = torch.einsum("bgrd,bwgd->bgrw", qg, k.to(torch.float32)) * scale
+    pos = torch.arange(w, device=k.device)[None, :]
+    valid = (pos < kv_len.to(k.device)[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - torch.where(
+        torch.isinf(m), 0.0, m)[..., None]), 0.0)
+    o = torch.einsum("bgrw,bwgd->bgrd", p, v.to(torch.float32))
+    return o.reshape(b, h, dh), m.reshape(b, h), p.sum(-1).reshape(b, h)

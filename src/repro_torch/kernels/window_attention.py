@@ -13,6 +13,10 @@ unit one in ``dh``, so a layer's slice of the stacked cache is read in
 place.  ``decode_window_attention`` is the reference's signature
 (``q [BH, dh]``, ``k``/``v [BH, W, dh]``, ``kv_len [BH]``), the case
 ``H = Hkv = 1``, and goes through the same launch.
+``window_attention_partial`` is the same launch's partial entry: the
+merged row of its splits left unnormalised, ``(o, m, l)`` with ``o / l``
+the attention, which the ranks of a row-sharded cache merge
+(``kernels.window_attention_spmd``); it takes ``0 <= kv_len <= W``.
 
 On a CUDA tensor the wrapper launches ``csrc/window_attention.cu``
 (built at first use, see ``_build``) or raises; on a CPU tensor it runs
@@ -46,7 +50,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import decode_window_attention_ref
+from repro_torch.kernels.ref import (decode_window_attention_partial_ref,
+                                     decode_window_attention_ref)
 from repro_torch.roofline import op_walk
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,6 +80,9 @@ def _kernel_lib():
         lib.window_attention_launch.argtypes = (
             [p] * 7 + [i32] * 7 + [i64] * 6 + [i32, i32, p])
         lib.window_attention_launch.restype = ctypes.c_int
+        lib.window_attention_partial_launch.argtypes = (
+            [p] * 7 + [i32] * 7 + [i64] * 6 + [i32, i32, p, p, p])
+        lib.window_attention_partial_launch.restype = ctypes.c_int
         lib.window_attention_info.argtypes = [i32, p]
         lib.window_attention_info.restype = ctypes.c_int
         lib.window_attention_error_string.argtypes = [ctypes.c_int]
@@ -238,12 +246,41 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _dispatch(q, k, v, kv_len) -> torch.Tensor:
+def window_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, kv_len: torch.Tensor):
+    """The partial entry: ``(o, m, l)``, float32 ``[B, H, dh]``, ``[B,
+    H]``, ``[B, H]``: m the scores' max over the first ``kv_len`` rows, l
+    the sum of ``e^(s - m)`` and o the sum of ``e^(s - m) v``; ``0 <=
+    kv_len <= W``, and a request with no row gives ``(0, -inf, 0)``.
+    Its launches count in ``window_attention.launches``."""
+    _check_args(q, k, v, kv_len)
+    if not op_walk.walking():
+        return _dispatch(q, k, v, kv_len, partial=True)
+    b, h, dh = q.shape
+    nbytes, flops = attention_work(b * k.shape[1], b, h, k.shape[2], dh,
+                                   k.element_size())
+    # the same kernel as ``window_attention``, with m and l written too
+    with op_walk.kernel("window_attention", flops,
+                        nbytes + 2 * b * h * 4) as call:
+        out = _dispatch(q, k, v, kv_len, partial=True)
+        call.outputs(*out)
+    return out
+
+
+def _dispatch(q, k, v, kv_len, partial: bool = False):
     device = q.device
     if device.type == "cpu":
+        if partial:
+            return decode_window_attention_partial_ref(q, k, v, kv_len)
         return decode_window_attention_ref(q, k, v, kv_len)
     if device.type == "meta":
-        return torch.empty(q.shape, dtype=torch.float32, device=device)
+        out = torch.empty(q.shape, dtype=torch.float32, device=device)
+        if partial:
+            return (out,) + tuple(torch.empty(q.shape[:2],
+                                              dtype=torch.float32,
+                                              device=device)
+                                  for _ in range(2))
+        return out
     if device.type != "cuda":
         raise ValueError(f"window_attention runs on cuda, cpu or meta, not "
                          f"{device}")
@@ -255,8 +292,10 @@ def _dispatch(q, k, v, kv_len) -> torch.Tensor:
         raise ValueError("k and v need a unit stride in dh, kv_len must be "
                          "contiguous")
     out = torch.empty((b, h, dh), dtype=torch.float32, device=device)
+    row = (torch.empty((2, b, h), dtype=torch.float32, device=device)
+           if partial else None)
     if b == 0 or h == 0:
-        return out
+        return (out, row[0], row[1]) if partial else out
     q = q.to(torch.float32).contiguous()
     n_rep = h // hkv
     n_chunks = -(-n_rep // _GROUP_HEADS)
@@ -275,19 +314,20 @@ def _dispatch(q, k, v, kv_len) -> torch.Tensor:
     stream = torch.cuda.current_stream(device).cuda_stream
     ticket = _ticket(device, stream, b * h)
     with torch.cuda.device(device):
-        err = lib.window_attention_launch(
+        err = lib.window_attention_partial_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             part.data_ptr(), ticket.data_ptr(), out.data_ptr(), b, h, hkv,
             w, dh, chunk, n_splits, k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), _DTYPE_CODE[k.dtype],
-            int(vec), stream)
+            int(vec), row[0].data_ptr() if partial else None,
+            row[1].data_ptr() if partial else None, stream)
     if err:
         raise RuntimeError(
             f"window_attention launch failed (q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, {n_splits} splits of {chunk} rows): "
             f"{lib.window_attention_error_string(err).decode()}")
     window_attention.launches += 1
-    return out
+    return (out, row[0], row[1]) if partial else out
 
 
 window_attention.launches = 0

@@ -1,24 +1,31 @@
 """Dry run of every (arch x input shape) on a mesh, on meta tensors
 (``repro.launch.dryrun`` in PyTorch).
 
-The reference lowers and compiles each step for a 512-device host mesh
-and walks the HLO.  The port has no partitioner and no HLO: here each
-combination builds its parameters, optimizer state and batch (or token
-and ``ServeState``) as meta tensors, which allocate nothing, runs the
-real step (``make_train_step``, ``make_prefill_step`` or
-``make_serve_step``) under the op walker (``roofline.op_walk``), and
-reports:
+The reference compiles each step's SPMD program for the production
+mesh and walks one device's HLO.  Here each combination builds its
+parameters, optimizer state and batch (or token and ``ServeState``) as
+meta tensors, which allocate nothing, runs the real step
+(``make_train_step``, ``make_prefill_step`` or ``make_serve_step``)
+under the op walker (``roofline.op_walk``), and reports:
 
 * the roofline terms (``roofline.analysis.Roofline``) on the H100 from
-  the walked FLOPs and bytes, and ``model_flops``;
+  the walked FLOPs, bytes and collective bytes, and ``model_flops``;
 * ``memory``: per device, the arguments exactly from the sharding specs
   (``launch.sharding``) and the step's own storages at their peak (the
-  walker's), split over the axes the residual stream's resolved spec
-  shards (``launch.shardctx``; 1 on one card); ``hbm_per_chip_gb`` is
-  their sum;
-* ``hlo``: the walker's counts in the shared trace schema;
-  ``coll_bytes`` is 0 on one card and null on a production mesh (not
-  counted: there is no partitioner to read collectives from).
+  walker's); ``hbm_per_chip_gb`` is their sum;
+* ``hlo``: the walker's counts in the shared trace schema, with the
+  collectives by kind (``coll_breakdown``) on a production mesh.
+
+On a production mesh (any ``DxM`` or ``PxDxM``) the arguments are meta
+DTensors under the sharding rules on a fake process group of the mesh's
+size (``launch.mesh.torch_mesh``, ``sharding.distribute_tree``), and
+DTensor partitions the step as XLA's SPMD partitioner does the
+reference's, constrained by the same hints (``launch.shardctx``).  The
+walker counts one device's program -- its local ops, its peak, and the
+collectives it issues -- and the FLOPs, bytes and collective bytes are
+that times the chips, as the reference scales its walk.  A plain tensor
+made inside the step (a position ``arange``, a mask) is taken as
+replicated.  On one card (``"1"``) the step runs on plain meta tensors.
 
 A prefill walks the model at two and at three periods of layers (a
 period is one layer, or the hybrid's ``attn_every``) and extrapolates
@@ -40,6 +47,7 @@ import argparse
 import dataclasses
 import gzip
 import json
+import logging
 import os
 import sys
 import time
@@ -50,7 +58,7 @@ from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.data import pipeline
 from repro_torch.launch import sharding, shardctx
 from repro_torch.launch.mesh import (DeviceMesh, make_production_mesh,
-                                     parse_mesh)
+                                     of_torch_mesh, parse_mesh, torch_mesh)
 from repro_torch.optim import adamw
 from repro_torch.profile.trace import results_dir
 from repro_torch.roofline import analysis, op_walk
@@ -119,19 +127,23 @@ def extrapolate(a: Walked, b: Walked, trips: int) -> Walked:
 
 def walk_step(cfg: ModelConfig, shape: InputShape,
               opt_cfg: adamw.AdamWConfig | None = None,
-              extrapolate_prefill: bool = True):
+              extrapolate_prefill: bool = True, tm=None, fsdp: bool = True):
     """``(Walked, args)``: the real step of ``shape.kind`` on meta inputs
     at ``shape``; ``args`` the step's arguments (parameters, optimizer
-    state, batch / token and state) as meta trees."""
+    state, batch / token and state) as meta trees, DTensors on the torch
+    mesh ``tm`` where one is given (``fsdp``: the parameters' layout)."""
     if shape.kind == "prefill" and extrapolate_prefill:
         period = _period(cfg)
         trips = cfg.n_layers // period
         if trips > 3 and cfg.arch_type != "audio":
             a, b = (walk_step(dataclasses.replace(cfg, n_layers=k * period),
-                              shape, extrapolate_prefill=False)[0]
+                              shape, extrapolate_prefill=False, tm=tm,
+                              fsdp=fsdp)[0]
                     for k in (2, 3))
             return extrapolate(a, b, trips), _args(cfg, shape)
     args = _args(cfg, shape)
+    if tm is not None:
+        args = distribute_args(cfg, shape, tm, args, fsdp)
     if shape.kind == "train":
         step = make_train_step(cfg, opt_cfg or adamw.AdamWConfig())
         w = walk(lambda: step(args["params"], args["opt"], args["batch"]),
@@ -160,6 +172,33 @@ def _args(cfg: ModelConfig, shape: InputShape) -> dict:
             "batch": batch}
 
 
+def distribute_args(cfg: ModelConfig, shape: InputShape, tm, args: dict,
+                    fsdp: bool) -> dict:
+    """The step's arguments as DTensors on the torch mesh ``tm`` under the
+    sharding rules (the parameters replaced in their ``Model``)."""
+    mesh = of_torch_mesh(tm)
+    pspecs = sharding.param_specs(args["params"], cfg, mesh, fsdp=fsdp)
+    out = {"params": sharding.distribute_tree(args["params"], pspecs, tm)}
+    if "opt" in args:
+        opt = args["opt"]
+        out["opt"] = dataclasses.replace(
+            opt, m=sharding.distribute_tree(opt.m, pspecs, tm),
+            v=sharding.distribute_tree(opt.v, pspecs, tm),
+            step=sharding.distribute_tree(opt.step, (), tm))
+    if "batch" in args:
+        out["batch"] = sharding.distribute_tree(
+            args["batch"], sharding.batch_specs(cfg, shape, mesh,
+                                                args["batch"]), tm)
+    if "token" in args:
+        tok = {"t": args["token"]}
+        out["token"] = sharding.distribute_tree(
+            tok, sharding.batch_specs(cfg, shape, mesh, tok), tm)["t"]
+        out["state"] = sharding.distribute_tree(
+            args["state"], sharding.serve_state_specs(cfg, shape, mesh,
+                                                      args["state"]), tm)
+    return out
+
+
 def argument_bytes(cfg: ModelConfig, shape: InputShape, mesh, args: dict,
                    fsdp: bool) -> float:
     """One device's bytes of the step's arguments under the sharding
@@ -186,16 +225,6 @@ def argument_bytes(cfg: ModelConfig, shape: InputShape, mesh, args: dict,
     return float(total)
 
 
-def activation_factor(cfg: ModelConfig, shape: InputShape, mesh) -> int:
-    """The ways the residual stream [B, S, d] is split under the
-    installed layout (``shardctx.residual_spec``, resolved on ``mesh``):
-    what the dry run divides the step's own bytes by."""
-    seq = 1 if shape.kind == "decode" else shape.seq_len
-    spec = sharding.resolve((shape.global_batch, seq, cfg.d_model),
-                            shardctx.residual_spec(), mesh)
-    return sharding.shard_factor(spec, mesh)
-
-
 def dry_run(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh, *,
             name: str | None = None, serve_tp: bool = False,
             trace_path=None, verbose: bool = True,
@@ -205,28 +234,34 @@ def dry_run(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh, *,
     given."""
     name = name or f"{cfg.name}:{shape.name}"
     chips = mesh.size
+    fsdp = not (serve_tp and shape.kind in ("decode", "prefill"))
     t0 = time.perf_counter()
     with shardctx.use_mesh(mesh):
-        walked, args = walk_step(cfg, shape, opt_cfg)
-        fsdp = not (serve_tp and shape.kind in ("decode", "prefill"))
+        if mesh.axis_names:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with torch_mesh(mesh) as tm, implicit_replication():
+                walked, args = walk_step(cfg, shape, opt_cfg, tm=tm,
+                                         fsdp=fsdp)
+                del args
+            args = _args(cfg, shape)
+        else:
+            walked, args = walk_step(cfg, shape, opt_cfg)
         arg_b = argument_bytes(cfg, shape, mesh, args, fsdp)
-        factor = activation_factor(cfg, shape, mesh)
     t_walk = time.perf_counter() - t0
-    coll = 0.0 if chips == 1 else None
-    cost = op_walk.cost_from_records(walked.trace, coll)
-    mem = analysis.memory_record(arg_b, walked.output_bytes / factor,
-                                 walked.peak_bytes / factor)
+    cost = op_walk.cost_from_records(walked.trace).scaled(chips)
+    mem = analysis.memory_record(arg_b, walked.output_bytes,
+                                 walked.peak_bytes)
     mf = analysis.model_flops(cfg, shape)
     rf = analysis.Roofline(
         name=name, mesh=mesh.name, chips=chips, hlo_flops=cost.flops,
-        hlo_bytes=cost.bytes, coll_bytes=coll, model_flops=mf,
+        hlo_bytes=cost.bytes, coll_bytes=cost.coll_bytes, model_flops=mf,
         bytes_per_chip=mem["peak_gb"] * 1e9)
     row = rf.row()
     row.update({
-        "hlo": cost.counts(),
+        "hlo": cost.counts(collectives=chips > 1),
         "bytes_by_op": {k: int(v) for k, v in cost.bytes_by_op.items()},
         "memory": mem,
-        "activation_split": factor,
         "layers_walked": list(walked.layers),
         "ops": sum(n for _, n in walked.trace),
         "walk_s": round(t_walk, 1),
@@ -238,7 +273,7 @@ def dry_run(cfg: ModelConfig, shape: InputShape, mesh: DeviceMesh, *,
         print(f"[{name} @ {mesh.name}] walk {t_walk:.0f}s, {row['ops']} ops"
               f" | args {mem['argument_gb']:.2f}GB temp {mem['temp_gb']:.2f}"
               f"GB | Tc {row['t_compute_s']:.3e} Tm {row['t_memory_s']:.3e} "
-              f"Tx {'not counted' if tx is None else f'{tx:.3e}'} -> "
+              f"Tx {tx:.3e} -> "
               f"{row['bottleneck']} | useful {row['usefulness']:.2f}")
         sys.stdout.flush()
     return row
@@ -302,11 +337,15 @@ def main(argv=None) -> int:
                     help="serving param layout (pure TP) for decode/prefill")
     ap.add_argument("--tag", default="", help="op trace file suffix")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="sequence-sharded residual stream")
+                    help="sequence-sharded residual stream (the hints)")
     ap.add_argument("--all", action="store_true",
                     help="all (arch x shape) on the chosen mesh")
     ap.add_argument("--out", default=None, help="append JSONL here")
     args = ap.parse_args(argv)
+    # DTensor warns once per new redistribution it plans (an all-gather
+    # and chunk for an all-to-all on a CPU group, reductions one mesh
+    # dimension at a time); the walk counts what it runs
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
     if args.mesh and args.multi_pod:
         ap.error("--mesh and --multi-pod exclude each other")
     mesh = (parse_mesh(args.mesh) if args.mesh

@@ -2,12 +2,13 @@
 PyTorch).
 
 The reference installs a mesh here before tracing, and its model code
-then constrains activations with ``hint``.  The port runs on one device
-and leaves the hints out of the model code; what stays is the context
-and the residual stream's layout, which the dry run reads to split the
-activations' bytes over the axes the layout shards
-(``residual_spec``).  Axis resolution (drop an axis not on the mesh or
-not dividing the dimension) is ``launch.sharding.resolve``.
+then constrains activations with ``hint``.  Here ``hint`` and
+``residual_hint`` act on DTensors (the partitioned dry run's, see
+``launch.dryrun``): a DTensor is redistributed to the placements of the
+resolved spec on its own mesh, each collective that costs counted by
+the op walker.  A plain tensor -- every run on one device -- is
+returned as it is, with no op.  Axis resolution (drop an axis not on
+the mesh or not dividing the dimension) is ``launch.sharding.resolve``.
 """
 from __future__ import annotations
 
@@ -57,3 +58,49 @@ def residual_spec() -> tuple:
     if RESIDUAL_LAYOUT == "seq":
         return (DP, TP, None)
     return (DP, None, TP)
+
+
+def is_distributed(x) -> bool:
+    """``x`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def hint(x, *spec):
+    """``x`` laid out as ``spec`` (one entry a dimension: None, an axis
+    or a bundle of axes), resolved on the DTensor's mesh; a plain tensor
+    is returned unchanged."""
+    if not is_distributed(x):
+        return x
+    from repro_torch.launch import sharding
+    want = sharding.placements(spec, x.device_mesh, tuple(x.shape))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def residual_hint(x):
+    """The configured residual-stream layout on [B, S, d]."""
+    return hint(x, *residual_spec())
+
+
+def heads_spec(shape, n_heads: int, mesh) -> tuple:
+    """The placements of ``[B, .., H * dh]`` before its split into
+    ``n_heads`` heads: the batch over the data axes, the heads over
+    ``"model"`` where it divides ``n_heads`` (resolved on the head count,
+    not on ``H * dh``: a block of a head cannot be split off), else
+    whole."""
+    from repro_torch.launch import sharding
+    spec = (DP,) + (None,) * (len(shape) - 2) + (TP,)
+    return sharding.placements(spec, mesh, tuple(shape[:-1]) + (n_heads,))
+
+
+def heads_hint(x, n_heads: int):
+    """``x [B, .., H * dh]`` laid out for its split into heads
+    (``heads_spec``); a plain tensor is returned unchanged."""
+    if not is_distributed(x):
+        return x
+    want = heads_spec(x.shape, n_heads, x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)

@@ -20,7 +20,10 @@ names (``layers.3.ffn.w_gate``, the hybrid's ``layers.l1.0.mix.in_proj``):
 a rule reads the name with its layer indices dropped.  The serving
 state is stacked in both packages (``[L, B, W, Hkv, dh]``).
 
-Nothing here touches a device: the dry run divides bytes by these specs.
+``placements`` maps a spec onto DTensor placements and
+``distribute_tree`` makes a tree's tensors DTensors on a torch mesh
+(``launch.mesh.torch_mesh``) under its specs: the partitioned dry run's
+arguments.
 """
 from __future__ import annotations
 
@@ -259,3 +262,70 @@ def tree_bytes(tree, specs: Any, mesh) -> int:
     leaves, spec_leaves = flatten(tree), flatten(specs)
     return sum(shard_bytes(t, spec_leaves[k], mesh)
                for k, t in leaves.items())
+
+
+# ----------------------------------------------------------------------
+# DTensor placements
+# ----------------------------------------------------------------------
+
+def placements(spec, mesh, shape=None) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh`` (the port's
+    ``DeviceMesh`` or a torch one), one a mesh axis: an axis that shards
+    dimension ``i`` is ``Shard(i)``, any other ``Replicate()``; a
+    dimension over a bundle (``("pod", "data")``) is ``Shard(i)`` on each
+    of its axes.  With ``shape`` the spec is resolved first
+    (``resolve``: what the reference's ``hint`` does)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _port_mesh(mesh)
+    if shape is not None:
+        spec = resolve(shape, spec, mesh)
+    out = [Replicate()] * len(mesh.axis_names)
+    for i, ax in enumerate(spec):
+        for a in () if ax is None else (ax if isinstance(ax, tuple)
+                                         else (ax,)):
+            out[mesh.axis_names.index(a)] = Shard(i)
+    return tuple(out)
+
+
+def _port_mesh(mesh):
+    if hasattr(mesh, "mesh_dim_names"):
+        from repro_torch.launch.mesh import of_torch_mesh
+        return of_torch_mesh(mesh)
+    return mesh
+
+
+def distribute(t: torch.Tensor, spec, tm):
+    """``t`` as a DTensor on the torch mesh ``tm`` under ``spec``: this
+    rank's block of it (``shard_shape``), cut locally, with no
+    collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, tm, placements(spec, tm),
+                             src_data_rank=None)
+
+
+def distribute_tree(tree, specs, tm):
+    """``tree`` (a ``Model``, whose parameters are replaced in place and
+    which is returned; a dict; a dataclass such as a ``ServeState`` or
+    an ``AdamWState``; a tensor) with every tensor a DTensor on ``tm``
+    under its spec from ``specs`` (the same structure; a ``Model``'s are
+    by parameter name).  None parts stay None."""
+    if isinstance(tree, torch.nn.Module):
+        for name, p in list(tree.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = tree.get_submodule(mod_name) if mod_name else tree
+            setattr(mod, leaf, torch.nn.Parameter(
+                distribute(p.detach(), specs[name], tm),
+                requires_grad=p.requires_grad))
+        return tree
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return distribute(tree, specs, tm)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: distribute_tree(getattr(tree, f.name),
+                                    getattr(specs, f.name), tm)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], tm) for k, v in tree.items()}
+    raise TypeError(f"distribute_tree: {type(tree).__name__}")

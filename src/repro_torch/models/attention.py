@@ -13,7 +13,12 @@ Decode takes its attention from the hand-written CUDA kernel
 slot first, in place, and the query attends to the cache's valid
 prefix.  The decoder's cross-attention at decode (one query against an
 all-valid encoder memory) is the same function with ``kv_len = T``, so
-it takes the kernel too (``cross_attention_decode``).
+it takes the kernel too (``cross_attention_decode``).  On DTensors (the
+partitioned dry run) the heads are laid out before the split
+(``shardctx.heads_hint``), the flash loop runs on each rank's heads or
+queries (``launch.local_rules.by_heads``), and decode runs B4 on each
+rank's rows of the cache and merges the ranks
+(``kernels.window_attention_spmd``).
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import window_attention_spmd as spmd
 from repro_torch.kernels.window_attention import window_attention
+from repro_torch.launch import local_rules, shardctx
 from repro_torch.models.layers import linear_init, rmsnorm, rmsnorm_init, rope
 
 
@@ -57,15 +64,22 @@ def _qkv(p: Attention, cfg, x: torch.Tensor, positions: torch.Tensor):
     q [B,S,H,dh], k/v [B,S,Hkv,dh]."""
     b, s, _ = x.shape
     dh = cfg.dh
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, dh)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, dh)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, dh)
+    q = _heads(x @ p.wq, cfg.n_heads, dh)
+    k = _heads(x @ p.wk, cfg.n_kv_heads, dh)
+    v = _heads(x @ p.wv, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _heads(t: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
+    """[B, S, H * dh] -> [B, S, H, dh] (on DTensors laid out for the
+    split first, ``shardctx.heads_hint``)."""
+    b, s, _ = t.shape
+    return shardctx.heads_hint(t, n_heads).reshape(b, s, n_heads, dh)
 
 
 def _sdpa(q, k, v, mask, n_rep: int):
@@ -135,7 +149,7 @@ def _flash_q_block(qb, kr, vr, q0: int, causal: bool, window: int | None,
 
 
 def flash_attention(q, k, v, causal: bool, window: int | None,
-                    n_rep: int) -> torch.Tensor:
+                    n_rep: int, q_start: int = 0) -> torch.Tensor:
     """Memory-bounded attention: an online softmax over KV chunks inside
     a loop over query chunks, so the live score block is [B,H,QC,KC]
     instead of [B,H,S,S].  As in the reference, the probability tile is
@@ -143,7 +157,15 @@ def flash_attention(q, k, v, causal: bool, window: int | None,
     denominator stay float32.  S and T must be multiples of the chunks
     (or smaller than them).  Where autograd records, each query chunk
     runs under a checkpoint, as the reference checkpoints its q block:
-    backward then holds one chunk's score tiles, not all nq x nk."""
+    backward then holds one chunk's score tiles, not all nq x nk.  The
+    queries sit at positions ``q_start`` on.  On DTensors it runs on each
+    rank's requests and heads, or its block of queries
+    (``launch.local_rules.by_heads``)."""
+    if shardctx.is_distributed(q):
+        return local_rules.by_heads(
+            lambda ql, kl, vl, r, q0: flash_attention(ql, kl, vl, causal,
+                                                      window, r, q0),
+            q, k, v, n_rep)
     b, s, h, dh = q.shape
     t = k.shape[1]
     if n_rep > 1:
@@ -159,8 +181,8 @@ def flash_attention(q, k, v, causal: bool, window: int | None,
     if torch.is_grad_enabled():
         block = functools.partial(checkpoint, _flash_q_block,
                                   use_reentrant=False)
-    ob = torch.stack([block(qr[qi], kr, vr, qi * qc, causal, window,
-                            dh ** -0.5) for qi in range(nq)])
+    ob = torch.stack([block(qr[qi], kr, vr, q_start + qi * qc, causal,
+                            window, dh ** -0.5) for qi in range(nq)])
     return ob.permute(1, 0, 3, 2, 4).reshape(b, s, h, dh)
 
 
@@ -191,8 +213,7 @@ def cross_attention_init(cfg, gen: torch.Generator | None = None,
 
 def _cross_q(p: Attention, cfg, x: torch.Tensor) -> torch.Tensor:
     """The cross-attention query [B,S,H,dh]: no rope, qk_norm on q."""
-    b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, cfg.dh)
+    q = _heads(x @ p.wq, cfg.n_heads, cfg.dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
     return q
@@ -235,16 +256,15 @@ def cross_attention_decode(p: Attention, cfg, x: torch.Tensor,
     b, t = mem_k.shape[:2]
     q = _cross_q(p, cfg, x)
     kv_len = torch.full((b,), t, dtype=torch.int32, device=x.device)
-    o = window_attention(q[:, 0], mem_k, mem_v, kv_len)      # [B,H,dh] f32
+    o = _attend(q[:, 0], mem_k, mem_v, kv_len)              # [B,H,dh] f32
     return _out_proj(p, o.to(x.dtype).reshape(b, 1, -1))
 
 
 def mem_kv(p: Attention, cfg, mem: torch.Tensor):
     """The cross-attention K/V [B,T,Hkv,dh] of an encoder output
     [B,T,d]; qk_norm on K, no rope."""
-    b, t, _ = mem.shape
-    k = (mem @ p.wk).reshape(b, t, cfg.n_kv_heads, cfg.dh)
-    v = (mem @ p.wv).reshape(b, t, cfg.n_kv_heads, cfg.dh)
+    k = _heads(mem @ p.wk, cfg.n_kv_heads, cfg.dh)
+    v = _heads(mem @ p.wv, cfg.n_kv_heads, cfg.dh)
     if cfg.qk_norm:
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
     return k, v
@@ -254,8 +274,21 @@ def mem_kv(p: Attention, cfg, mem: torch.Tensor):
 # Decode path: one query token against a KV cache.
 # ----------------------------------------------------------------------
 
+def _attend(q, k, v, kv_len):
+    """B4: on one device the kernel over the whole cache; on a DTensor
+    cache its partials on each rank's rows, merged over the ranks
+    (``kernels.window_attention_spmd``)."""
+    if shardctx.is_distributed(k):
+        return spmd.sharded_window_attention(q, k, v, kv_len)
+    return window_attention(q, k, v, kv_len)
+
+
 def _ring_insert(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
-    """In place: cache [B,W,H,dh] gets new [B,1,H,dh] at row slot [B]."""
+    """In place: cache [B,W,H,dh] gets new [B,1,H,dh] at row slot [B]
+    (on a DTensor cache each rank writes its own rows)."""
+    if shardctx.is_distributed(cache):
+        spmd.sharded_ring_insert(cache, new, slot)
+        return cache
     b = cache.shape[0]
     cache[torch.arange(b, device=cache.device), slot] = new[:, 0].to(
         cache.dtype)
@@ -312,5 +345,5 @@ def decode_attention(p: Attention, cfg, x: torch.Tensor,
         valid = (t < kv_len[:, None]) | (t == slot[:, None])
         o = _masked_attention(q[:, 0], cache_k, cache_v, valid)
     else:
-        o = window_attention(q[:, 0], cache_k, cache_v, kv_len)  # f32
+        o = _attend(q[:, 0], cache_k, cache_v, kv_len)  # f32
     return _out_proj(p, o.to(x.dtype).reshape(b, 1, -1))

@@ -14,7 +14,9 @@ chunk).
 
 Decode is the O(1) recurrent step; it updates the state it is given in
 place (``h`` float32, and the conv tail, which is bfloat16 whatever the
-model's dtype, as in the reference).
+model's dtype, as in the reference).  On DTensors the input projection
+is two products, one a half (``_in_proj``), and the scan runs on each
+rank's requests and channels (``launch.local_rules.by_channels``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import local_rules, shardctx
 from repro_torch.models.layers import linear_init
 
 _CHUNK = 256
@@ -90,11 +93,26 @@ def _selective(p: Mamba, cfg, x: torch.Tensor):
             proj[..., dtr + ds:].float())
 
 
-def _ssm_inputs(p: Mamba, cfg, xz: torch.Tensor):
+def _in_proj(p: Mamba, cfg, x: torch.Tensor):
+    """``x @ in_proj`` [B,S,2 di] as its x and z halves.  On DTensors
+    each half is its own product with its columns of the weight, the
+    halves laid out as the residual stream (the weight's slice gathers
+    the columns, a weight's bytes): a slice of the product, sharded over
+    ``"model"`` across the halves' boundary, would gather the whole
+    ``[B, S, 2 di]`` product instead."""
+    di = cfg.d_inner
+    if shardctx.is_distributed(x):
+        return tuple(shardctx.hint(x @ w, shardctx.DP, None, shardctx.TP)
+                     for w in (p.in_proj[:, :di], p.in_proj[:, di:]))
+    xz = x @ p.in_proj
+    return xz[..., :di], xz[..., di:]
+
+
+def _ssm_inputs(p: Mamba, cfg, x: torch.Tensor, z: torch.Tensor):
     """The common front half: the causal depthwise conv over time, silu,
-    and the selective parameters.  xz: [B,S,2 di]."""
-    di, dc = cfg.d_inner, cfg.ssm.d_conv
-    x, z = xz[..., :di], xz[..., di:]
+    and the selective parameters.  x, z: [B,S,di], ``_in_proj``'s
+    halves."""
+    dc = cfg.ssm.d_conv
     s = x.shape[1]
     pads = F.pad(x, (0, 0, dc - 1, 0))
     x = sum(pads[:, i:i + s] * p.conv_w[i] for i in range(dc)) + p.conv_b
@@ -133,12 +151,28 @@ def apply_train(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
     autograd records, each chunk runs under a checkpoint, as the
     reference checkpoints its chunk body: backward then holds one
     chunk's ``[B, c, di, ds]`` rounds at a time, not every chunk's."""
-    b, s, _ = x.shape
-    di, ds = cfg.d_inner, cfg.ssm.d_state
-    xc, z, dt, bmat, cmat = _ssm_inputs(p, cfg, x @ p.in_proj)
+    xc, z, dt, bmat, cmat = _ssm_inputs(p, cfg, *_in_proj(p, cfg, x))
     a = -torch.exp(p.A_log)                                  # [di, ds]
     xf = xc.float()
-    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    if shardctx.is_distributed(xf):
+        y = local_rules.by_channels(
+            lambda *t: torch.cat(_scan(*t)[1], dim=1), a, dt, xf, bmat, cmat)
+    else:
+        # the last state and the chunks stay live to the end, as they
+        # always have (the one-card dry run's peak counts them)
+        h, ys = _scan(a, dt, xf, bmat, cmat)
+        y = torch.cat(ys, dim=1)
+    y = y + xf * p.D
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p.out_proj
+
+
+def _scan(a, dt, xf, bmat, cmat):
+    """The chunked scan from a zero state: ``(h, ys)``, the last state
+    [B, di, ds] and the chunks' outputs [B, c, di] (no skip term)."""
+    b, s, di = xf.shape
+    h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
+                    device=xf.device)
     block = _scan_block
     if torch.is_grad_enabled():
         block = functools.partial(checkpoint, _scan_block,
@@ -148,9 +182,7 @@ def apply_train(p: Mamba, cfg, x: torch.Tensor) -> torch.Tensor:
         sl = slice(c0, c0 + _CHUNK)
         h, yk = block(a, h, dt[:, sl], xf[:, sl], bmat[:, sl], cmat[:, sl])
         ys.append(yk)
-    y = torch.cat(ys, dim=1) + xf * p.D
-    y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p.out_proj
+    return h, ys
 
 
 def init_decode_state(cfg, batch: int, device=None) -> dict:

@@ -16,7 +16,9 @@ Families:
 The reference stacks the layers' parameters on a leading axis and scans
 over them; here each stack is a ``ModuleList`` and the scan a Python
 loop, which is the same computation.  The reference's sharding hints
-are no-ops on one device and are left out.  ``forward`` is the
+stand where it has them (``launch.shardctx``: the residual stream at
+each layer's entry and exit, the output embedding and the logits); they
+act on DTensors only, so on one device they add no op.  ``forward`` is the
 training forward and its loss; ``trainable`` turns the parameters'
 gradients on for a step.
 """
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import local_rules, shardctx
 from repro_torch.models import attention, mamba, moe
 from repro_torch.models.layers import (act_fn, embed_init, linear_init,
                                        rmsnorm, rmsnorm_init)
@@ -189,6 +192,7 @@ def _layer_apply(p: Layer, cfg, x: torch.Tensor, positions,
     """One layer over [B,S,d]; ``mem`` [B,T,d], the encoder output, for
     the audio decoder's cross-attention (all of it valid).  Returns
     ``(x, aux)``, aux the MoE's load-balance loss (0 without one)."""
+    x = shardctx.residual_hint(x)
     h = rmsnorm(x, p.norm1, cfg.norm_eps)
     if isinstance(p.mix, attention.Attention):
         x = x + attention.self_attention(p.mix, cfg, h, positions,
@@ -208,7 +212,7 @@ def _layer_apply(p: Layer, cfg, x: torch.Tensor, positions,
         else:
             y = _mlp_apply(p.ffn, cfg, h2)
         x = x + y
-    return x, aux
+    return shardctx.residual_hint(x), aux
 
 
 def _layer_remat(lp: Layer, cfg, x, positions, causal=True, mem=None,
@@ -254,7 +258,14 @@ def _logits(params: Model, cfg, x: torch.Tensor) -> torch.Tensor:
     """float32 logits over the padded vocabulary; the padding rows are
     masked to -1e9."""
     out = params.out if params.out is not None else params.embed
+    # the output embedding's FSDP-sharded d gathered, not the [B, S, V]
+    # partial logits reduced over the data axis (the reference's hints);
+    # on DTensors x is gathered whole over d too, so each rank's logits
+    # are its vocabulary block (the layout XLA derives from the hints)
+    out = shardctx.hint(out, shardctx.TP, None)
+    x = shardctx.hint(x, shardctx.DP, None, None)
     logits = torch.einsum("bsd,vd->bsv", x, out).float()
+    logits = shardctx.hint(logits, shardctx.DP, None, shardctx.TP)
     vp = vocab_padded(cfg)
     if vp != cfg.vocab:
         real = torch.arange(vp, device=logits.device) < cfg.vocab
@@ -263,6 +274,9 @@ def _logits(params: Model, cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed_tokens(params: Model, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    if shardctx.is_distributed(params.embed):
+        return shardctx.residual_hint(
+            local_rules.vocab_embedding(params.embed, tokens))
     return params.embed[tokens.long()]
 
 
@@ -325,8 +339,15 @@ def token_nll(params: Model, cfg: ModelConfig, x: torch.Tensor,
     of that one logit and zeros, which is the same number, and a
     ``[B, S, V]`` one-hot is never built."""
     logits = _logits(params, cfg, x)
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if shardctx.is_distributed(logits):
+        lse = local_rules.vocab_logsumexp(logits)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+    if shardctx.is_distributed(logits):
+        label_logit = local_rules.label_logits(logits, labels)
+    else:
+        label_logit = torch.gather(logits, -1,
+                                   labels.long()[..., None])[..., 0]
     nll = lse - label_logit
     return nll.sum() / max(nll.numel(), 1)
 

@@ -13,13 +13,17 @@ shapes, and the whole batch as one group at decode (``S == 1``), so the
 capacity and the drops are those of that grouping.  The groups are
 vectorised rather than looped.  The four steps are module-level
 functions (``route``, ``dispatch``, ``expert_ffn``, ``combine``), so a
-profile can time each.
+profile can time each.  On DTensors the buffer carries the reference's
+two hints (experts over ``"model"`` for the FFN, then d for the
+combine), and the expert counts, the dispatch and the expert FFN run on
+the local shards (``launch.local_rules``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.launch import local_rules, shardctx
 from repro_torch.models.layers import act_fn, linear_init
 
 
@@ -75,10 +79,14 @@ def route(p: MoE, cfg, x: torch.Tensor):
     me = probs.mean(dim=(0, 1))
     # counts by a scatter-add, as the reference: bincount on CUDA would
     # wait for the device to size its output
-    flat = eidx.reshape(-1)
-    ce = torch.zeros(m.n_experts, dtype=torch.float32, device=x.device) \
-        .index_add_(0, flat, torch.ones(flat.shape, device=x.device)) \
-        / (b * s * m.top_k)
+    if shardctx.is_distributed(eidx):
+        ce = local_rules.expert_counts(eidx, m.n_experts)
+    else:
+        flat = eidx.reshape(-1)
+        ce = torch.zeros(m.n_experts, dtype=torch.float32,
+                         device=x.device).index_add_(
+            0, flat, torch.ones(flat.shape, device=x.device))
+    ce = ce / (b * s * m.top_k)
     aux = m.n_experts * (me * ce).sum()
     return logits, gate, eidx, aux
 
@@ -112,10 +120,14 @@ def dispatch(x: torch.Tensor, eidx: torch.Tensor, n_experts: int, cap: int):
 
 def expert_ffn(p: MoE, cfg, buf: torch.Tensor) -> torch.Tensor:
     """The gated FFN of every expert over its slots: [G,E,cap,d]."""
+    return _expert_ffn(cfg, buf, p.w_gate, p.w_up, p.w_down)
+
+
+def _expert_ffn(cfg, buf, w_gate, w_up, w_down):
     act = act_fn(cfg.act)
-    h = act(torch.einsum("becd,edf->becf", buf, p.w_gate)) \
-        * torch.einsum("becd,edf->becf", buf, p.w_up)
-    return torch.einsum("becf,efd->becd", h, p.w_down)
+    h = act(torch.einsum("becd,edf->becf", buf, w_gate)) \
+        * torch.einsum("becd,edf->becf", buf, w_up)
+    return torch.einsum("becf,efd->becd", h, w_down)
 
 
 def combine(out_buf: torch.Tensor, eidx: torch.Tensor, pos: torch.Tensor,
@@ -139,7 +151,21 @@ def apply(p: MoE, cfg, x: torch.Tensor):
     if s0 == 1:
         x = x.reshape(1, b0, d)
     _, gate, eidx, aux = route(p, cfg, x)
-    buf, pos, keep = dispatch(x, eidx, cfg.moe.n_experts,
-                              capacity(cfg, x.shape[1]))
-    y = combine(expert_ffn(p, cfg, buf), eidx, pos, keep, gate)
+    n_e, cap = cfg.moe.n_experts, capacity(cfg, x.shape[1])
+    if shardctx.is_distributed(x):
+        buf, pos, keep = local_rules.by_group(
+            lambda xl, el: dispatch(xl, el, n_e, cap), 3, x, eidx)
+    else:
+        buf, pos, keep = dispatch(x, eidx, n_e, cap)
+    # experts over the model axis for the FFN, then d over it for the
+    # combine's gathers (the reference's hints)
+    buf = shardctx.hint(buf, shardctx.DP, shardctx.TP, None, None)
+    if shardctx.is_distributed(buf):
+        out_buf = local_rules.by_expert(
+            lambda bl, wg, wu, wd: _expert_ffn(cfg, bl, wg, wu, wd), buf,
+            p.w_gate, p.w_up, p.w_down)
+    else:
+        out_buf = expert_ffn(p, cfg, buf)
+    out_buf = shardctx.hint(out_buf, shardctx.DP, None, None, shardctx.TP)
+    y = combine(out_buf, eidx, pos, keep, gate)
     return y.reshape(b0, s0, d), aux

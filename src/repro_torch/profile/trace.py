@@ -17,7 +17,8 @@ record kinds:
 
 The reference may nest XLA HLO op counts under an ``"hlo"`` key
 (``hlo_counts``).  The port has no HLO to walk; its dry run nests the op
-walker's counts there (``roofline.op_walk.Cost.counts``), and its
+walker's counts there (``roofline.op_walk.Cost.counts``, which adds the
+collectives' breakdown by kind), and its
 launch records carry no ``"hlo"`` key unless a caller hands counts to
 ``record_launch``.
 
@@ -45,12 +46,10 @@ def results_dir() -> pathlib.Path:
 
 def hlo_counts(cost) -> dict:
     """Project a cost object (``flops`` / ``bytes`` / ``coll_bytes``
-    attributes) onto the shared trace schema's ``"hlo"`` dict; a
-    ``coll_bytes`` of None (not counted: the dry run on a production
-    mesh) stays None."""
-    coll = cost.coll_bytes
+    attributes, and a ``coll_breakdown`` mapping if it has one) onto the
+    shared trace schema's ``"hlo"`` dict."""
     d = {"flops": int(cost.flops), "hbm_bytes": int(cost.bytes),
-         "coll_bytes": None if coll is None else int(coll)}
+         "coll_bytes": int(cost.coll_bytes)}
     br = getattr(cost, "coll_breakdown", None)
     if br:
         d["coll_breakdown"] = {k: int(v) for k, v in dict(br).items()}

@@ -5,13 +5,17 @@ in PyTorch).
     memory     = op bytes / (chips * 3.35e12)    [HBM3]
     collective = collective bytes / (chips * 450e9)   [NVLink, one way]
 
-The FLOPs and bytes are the op walker's (``roofline.op_walk``): the
-eager port's own kernels, counted on meta tensors.  The collective term
-is 0 on one card and None (not counted) on a production mesh: the port
-has no partitioner whose collectives it could read, so it does not
-guess them.  ``model_flops`` (6·N·D train, 2·N·D forward and decode,
-N the active parameters) gives the usefulness ratio, as in the
-reference.  The rates are NVIDIA's H100 SXM data sheet values.
+The FLOPs, bytes and collective bytes are the op walker's
+(``roofline.op_walk``): the eager port's own kernels, counted on meta
+tensors, and on a production mesh one device's program under DTensor
+times the chips (``launch.dryrun``).  The collective term is 0 on one
+card.  ``LINK_BW`` is one rate, as the reference's ``ICI_BW`` is: 450
+GB/s is a GPU's NVLink rate inside one 8-GPU NVLink domain, and a
+16-wide ``"model"`` axis spans two such nodes, whose link is slower;
+no per-axis rate is modelled.  ``model_flops`` (6·N·D train, 2·N·D
+forward and decode, N the active parameters) gives the usefulness
+ratio, as in the reference.  The rates are NVIDIA's H100 SXM data sheet
+values.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ class Roofline:
     chips: int
     hlo_flops: float             # the op walker's FLOPs (the key is the
     hlo_bytes: float             # reference's), summed over the chips
-    coll_bytes: float | None
+    coll_bytes: float            # summed over the chips
     model_flops: float
     bytes_per_chip: float        # argument + temp peak, one device
 
@@ -42,16 +46,13 @@ class Roofline:
         return self.hlo_bytes / (self.chips * HBM_BW)
 
     @property
-    def t_collective(self) -> float | None:
-        if self.coll_bytes is None:
-            return None
+    def t_collective(self) -> float:
         return self.coll_bytes / (self.chips * LINK_BW)
 
     @property
     def bottleneck(self) -> str:
-        terms = {"compute": self.t_compute, "memory": self.t_memory}
-        if self.t_collective is not None:
-            terms["collective"] = self.t_collective
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
         return max(terms, key=terms.get)
 
     @property

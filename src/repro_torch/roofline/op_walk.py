@@ -40,8 +40,19 @@ whole published-size step walks in seconds to minutes; on meta a
 functional op seen before at the same specs gets its outputs from
 ``empty_strided`` instead of its (Python) meta kernel.  The records
 (``OpWalk.trace()``) are the op trace ``reanalyze`` re-walks.
-``coll_bytes`` is 0 on one device; on a production mesh it is None (not
-counted): the port has no partitioner whose collectives it could read.
+
+On DTensors (the partitioned dry run) the walk counts one device's
+program, as the reference walks one device's HLO: an op on DTensors is
+handed back to DTensor (``NotImplemented``), which runs it on the local
+shards -- those ops, at their local shapes, are what is counted, and
+the local storages are what is live -- and each collective DTensor
+issues (a ``_c10d_functional`` op) is a record of its own: its output
+bytes, one device's, in ``coll_bytes`` and ``coll_breakdown`` under the
+reference's five kinds, and its operands and output in the HBM bytes
+(the reference's rule).  ``wait_tensor`` is free.  DTensor's
+``Shard(i) -> Shard(j)`` is recorded as one all-to-all of its bytes,
+whatever the process group runs for it (a CPU group runs an all-gather
+and a chunk).  One device has no collective, so ``coll_bytes`` is 0.
 """
 from __future__ import annotations
 
@@ -100,6 +111,25 @@ _SCATTER = {"index_put_", "index_put", "_index_put_impl_", "index_copy_",
 # writes a whole (view of a) tensor without reading it first
 _WRITE_ONLY = {"copy_", "fill_", "zero_", "normal_", "uniform_",
                "random_", "bernoulli_"}
+# the reference's five collective kinds (``collective_bytes``), by the
+# ``_c10d_functional`` op that issues each
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLL_KIND = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "permute_tensor": "collective-permute",
+}
+# collective namespaces, and their ops that move nothing
+_COLL_NAMESPACES = ("_c10d_functional", "_dtensor")
+_COLL_FREE = {"wait_tensor", "_wrap_tensor_autograd"}
 
 # ----------------------------------------------------------------------
 # Records: an op's name and its arguments with tensors as specs
@@ -208,6 +238,10 @@ def cost_of(record: tuple) -> tuple:
     name, args, kwargs, outs = record
     if name.startswith("kernel."):
         return float(args), float(kwargs), name
+    if name.startswith("c10d."):
+        moved = sum(_view_bytes(t) for t in
+                    list(_specs(args)) + list(_specs(outs)))
+        return 0.0, float(moved), "collective"
     packet = name.partition(".")[0]
     base = packet.rstrip("_") if not packet.startswith("_") else packet
     if packet in _FREE or _views_only(name):
@@ -249,19 +283,36 @@ def cost_of(record: tuple) -> tuple:
     return flops, float(sum(ins) + out_b), kind
 
 
+@functools.lru_cache(maxsize=None)
+def collective_of(record: tuple):
+    """``(kind, bytes)`` of a collective's record (``bytes`` its output's,
+    one device's, as the reference's ``collective_bytes``), else None."""
+    name, _, _, outs = record
+    if not name.startswith("c10d."):
+        return None
+    return (_COLL_KIND[name.split(".")[1]],
+            sum(_view_bytes(t) for t in _specs(outs)))
+
+
 # ----------------------------------------------------------------------
 # Cost: the sums, and the records they came from
 # ----------------------------------------------------------------------
+
+def _zero_kinds() -> dict:
+    return {k: 0.0 for k in COLLECTIVES}
+
 
 @dataclasses.dataclass
 class Cost:
     flops: float = 0.0
     bytes: float = 0.0
-    coll_bytes: float | None = 0.0
+    coll_bytes: float = 0.0
     bytes_by_op: dict = dataclasses.field(
         default_factory=lambda: defaultdict(float))
     flops_by_op: dict = dataclasses.field(
         default_factory=lambda: defaultdict(float))
+    coll_by_kind: dict = dataclasses.field(default_factory=_zero_kinds)
+    coll_counts: dict = dataclasses.field(default_factory=_zero_kinds)
 
     def add(self, record: tuple, n: int = 1) -> None:
         f, b, kind = cost_of(record)
@@ -269,38 +320,46 @@ class Cost:
         self.bytes += n * b
         self.bytes_by_op[kind] += n * b
         self.flops_by_op[kind] += n * f
-
-    def __iadd__(self, other: "Cost") -> "Cost":
-        self.flops += other.flops
-        self.bytes += other.bytes
-        self.coll_bytes = (None if self.coll_bytes is None
-                           or other.coll_bytes is None
-                           else self.coll_bytes + other.coll_bytes)
-        for k, v in other.bytes_by_op.items():
-            self.bytes_by_op[k] += v
-        for k, v in other.flops_by_op.items():
-            self.flops_by_op[k] += v
-        return self
+        coll = collective_of(record)
+        if coll is not None:
+            self.coll_bytes += n * coll[1]
+            self.coll_by_kind[coll[0]] += n * coll[1]
+            self.coll_counts[coll[0]] += n
 
     def scaled(self, k: float) -> "Cost":
-        c = Cost(self.flops * k, self.bytes * k,
-                 None if self.coll_bytes is None else self.coll_bytes * k)
-        c.bytes_by_op = defaultdict(
-            float, {kk: v * k for kk, v in self.bytes_by_op.items()})
-        c.flops_by_op = defaultdict(
-            float, {kk: v * k for kk, v in self.flops_by_op.items()})
+        """Every sum times ``k`` (one device's walk times the chips, as
+        the reference scales its walk); the collectives' counts stay one
+        device's."""
+        c = Cost(self.flops * k, self.bytes * k, self.coll_bytes * k)
+        for mine, theirs in ((self.bytes_by_op, c.bytes_by_op),
+                             (self.flops_by_op, c.flops_by_op),
+                             (self.coll_by_kind, c.coll_by_kind)):
+            theirs.update({kk: v * k for kk, v in mine.items()})
+        c.coll_counts = dict(self.coll_counts)
         return c
 
-    def counts(self) -> dict:
+    def breakdown(self) -> dict:
+        """The collectives' bytes by the reference's five kinds, with
+        ``counts`` (one device's ops of each kind) and ``total``, the
+        keys of the reference's ``collective_bytes``."""
+        return {**{k: int(v) for k, v in self.coll_by_kind.items()},
+                "counts": {k: int(v) for k, v in self.coll_counts.items()},
+                "total": int(self.coll_bytes)}
+
+    def counts(self, collectives: bool) -> dict:
         """This cost in the shared trace schema (the ``"hlo"`` dict of
-        ``repro_torch.profile.trace``)."""
+        ``repro_torch.profile.trace``), with ``coll_breakdown`` where
+        ``collectives`` is set (a production mesh)."""
         from repro_torch.profile.trace import hlo_counts
-        return hlo_counts(self)
+        d = hlo_counts(self)
+        if collectives:
+            d["coll_breakdown"] = self.breakdown()
+        return d
 
 
-def cost_from_records(records, coll_bytes: float | None = 0.0) -> Cost:
+def cost_from_records(records) -> Cost:
     """Re-walk an op trace: ``records`` are ``(record, count)`` pairs."""
-    c = Cost(coll_bytes=coll_bytes)
+    c = Cost()
     for rec, n in records:
         c.add(rec, n)
     return c
@@ -319,8 +378,22 @@ def walking() -> bool:
     return bool(_ACTIVE)
 
 
+def _dtensor_type():
+    """DTensor's class, or None where torch has no distributed package."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:
+        return None
+    return DTensor
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; any other tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _storage_key(t: torch.Tensor):
-    return t.untyped_storage()._cdata
+    return _local(t).untyped_storage()._cdata
 
 
 class OpWalk(TorchDispatchMode):
@@ -343,14 +416,67 @@ class OpWalk(TorchDispatchMode):
         self.adopted: set = set()
         self._paused = 0
         self._lock = threading.Lock()
+        self._dtensor = _dtensor_type()
+        self._patched: list = []
 
     def __enter__(self):
         _ACTIVE.append(self)
+        self._patch_dtensor()
         return super().__enter__()
 
     def __exit__(self, *exc):
         _ACTIVE.remove(self)
+        for owner, name, orig in reversed(self._patched):
+            setattr(owner, name, orig)
+        self._patched = []
         return super().__exit__(*exc)
+
+    def _patch(self, owner, name, wrap) -> None:
+        orig = getattr(owner, name, None)
+        if orig is not None:
+            self._patched.append((owner, name, orig))
+            setattr(owner, name, wrap(orig))
+
+    def _patch_dtensor(self) -> None:
+        """While walking: DTensor's ``Shard(i) -> Shard(j)`` is counted as
+        the one all-to-all it is, not as what the process group runs for
+        it (a CPU group: an all-gather and a chunk); and the ops DTensor
+        runs at global shapes to decide an op's sharding by its
+        decomposition are not counted (as those on fake tensors are
+        not, ``__torch_dispatch__``)."""
+        if self._dtensor is None:
+            return
+        from torch.distributed.tensor import placement_types as pt
+
+        def alltoall(orig):
+            def shard_dim_alltoall(input, *args, **kwargs):
+                if self._paused:
+                    return orig(input, *args, **kwargs)
+                with self.paused():
+                    out = orig(input, *args, **kwargs)
+                    if out.untyped_storage().nbytes() > \
+                            out.numel() * out.element_size():
+                        out = out.clone()       # an all-to-all's own output
+                key = ("c10d.all_to_all_single.default", (_encode(input),),
+                       ())
+                self.records[key] += 1
+                self.outs.setdefault(key, _encode(out))
+                self.track(out, {_storage_key(input)})
+                return out
+            return shard_dim_alltoall
+
+        def paused(orig):
+            def deciding(*args, **kwargs):
+                with self.paused():
+                    return orig(*args, **kwargs)
+            return deciding
+        self._patch(pt, "shard_dim_alltoall", alltoall)
+        try:
+            from torch.distributed.tensor._decompositions import \
+                DecompShardingStrategy
+        except ImportError:
+            return
+        self._patch(DecompShardingStrategy, "propagate_strategy", paused)
 
     # live storages ---------------------------------------------------
     def _free(self, key) -> None:
@@ -367,8 +493,9 @@ class OpWalk(TorchDispatchMode):
 
     def track(self, t: torch.Tensor, inputs=()) -> None:
         """Count ``t``'s storage as created by the step, unless it is
-        already counted or is one of ``inputs``' (a view)."""
-        st = t.untyped_storage()
+        already counted or is one of ``inputs``' (a view); a DTensor's is
+        its local shard's."""
+        st = _local(t).untyped_storage()
         key = st._cdata
         if key in self.live or key in inputs:
             return
@@ -396,15 +523,26 @@ class OpWalk(TorchDispatchMode):
     # ops ---------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self._paused:
+        if self._dtensor is not None and self._dtensor in types:
+            # DTensor runs the op on the local shards, and the walk
+            # counts those ops and the collectives it issues
+            return NotImplemented
+        if self._paused or torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation runs each new op once on
+            # fake tensors of the global shapes: not the step's work
             return func(*args, **kwargs)
         name = self._names.get(func)
         if name is None:
             packet = func._overloadpacket.__name__
             # allocations and descriptions are not recorded: they cost
             # nothing, and how a device makes a constant differs
-            name = (None if packet in _FREE
-                    else f"{packet}.{func._overloadname}")
+            if func.namespace in _COLL_NAMESPACES:
+                name = (None if packet in _COLL_FREE
+                        else f"c10d.{packet}.{func._overloadname}")
+            else:
+                name = (None if packet in _FREE
+                        else f"{packet}.{func._overloadname}")
             self._names[func] = name
         if name is None:
             out = func(*args, **kwargs)
@@ -461,8 +599,8 @@ class OpWalk(TorchDispatchMode):
         return [(k + (self.outs.get(k, ()),), n)
                 for k, n in self.records.items()]
 
-    def cost(self, coll_bytes: float | None = 0.0) -> Cost:
-        return cost_from_records(self.trace(), coll_bytes)
+    def cost(self) -> Cost:
+        return cost_from_records(self.trace())
 
 
 def _on_meta(args) -> bool:

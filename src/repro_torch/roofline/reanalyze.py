@@ -8,7 +8,9 @@
 Each ``<arch>__<shape>__<mesh>.jsonl.gz`` (``launch.dryrun.write_trace``)
 holds the row it was written with and the op records; the FLOPs and
 bytes are recounted from the records by ``op_walk.cost_of`` (so a change
-of the counting rules or of the card's rates reaches every row), and
+of the counting rules or of the card's rates reaches every row), the
+collectives' bytes by kind from their records (``op_walk.collective_of``),
+the sums times the chips as the dry run scales one device's walk, and
 ``model_flops`` from the config.  The memory record, the walk's time
 and the other measured keys come from the trace's own row, or from
 ``--merge-from`` where that file has the row.  The rows nest the counts
@@ -28,7 +30,7 @@ from repro_torch.roofline import analysis, op_walk
 
 # row keys carried over verbatim (measured by the walk; a re-walk of the
 # records cannot recompute them)
-_MERGE_KEYS = ("memory", "walk_s", "activation_split", "layers_walked")
+_MERGE_KEYS = ("memory", "walk_s", "layers_walked")
 
 
 def reanalyze_trace(path, merged: dict | None = None) -> dict:
@@ -41,14 +43,14 @@ def reanalyze_trace(path, merged: dict | None = None) -> dict:
     if arch in configs.REGISTRY and shape_name in INPUT_SHAPES:
         mf = analysis.model_flops(configs.get(arch), INPUT_SHAPES[shape_name])
     chips = prev["chips"]
-    coll = 0.0 if chips == 1 else None
-    cost = op_walk.cost_from_records(trace, coll)
+    cost = op_walk.cost_from_records(trace).scaled(chips)
     rf = analysis.Roofline(
         name=prev["name"], mesh=prev["mesh"], chips=chips,
-        hlo_flops=cost.flops, hlo_bytes=cost.bytes, coll_bytes=coll,
-        model_flops=mf, bytes_per_chip=prev["memory"]["peak_gb"] * 1e9)
+        hlo_flops=cost.flops, hlo_bytes=cost.bytes,
+        coll_bytes=cost.coll_bytes, model_flops=mf,
+        bytes_per_chip=prev["memory"]["peak_gb"] * 1e9)
     row = rf.row()
-    row["hlo"] = cost.counts()
+    row["hlo"] = cost.counts(collectives=chips > 1)
     row["bytes_by_op"] = {k: int(v) for k, v in cost.bytes_by_op.items()}
     row["ops"] = sum(n for _, n in trace)
     for key in _MERGE_KEYS:
@@ -82,10 +84,8 @@ def main(argv=None) -> None:
             trace_dir, f"*__{args.mesh}.jsonl.gz"))):
         row = reanalyze_trace(path, merged)
         rows.append(row)
-        tx = row["t_collective_s"]
         print(f"{row['name']:45s} Tc={row['t_compute_s']:.3e} "
-              f"Tm={row['t_memory_s']:.3e} "
-              f"Tx={'not counted' if tx is None else f'{tx:.3e}'} "
+              f"Tm={row['t_memory_s']:.3e} Tx={row['t_collective_s']:.3e} "
               f"-> {row['bottleneck']}")
     if args.out:
         with open(args.out, "w") as f:

@@ -32,7 +32,8 @@ from repro_torch.core.update import gather_scopes
 from repro_torch.kernels import als_normal_eq as als_port
 from repro_torch.kernels import ell_spmv as port
 from repro_torch.kernels import window_attention as wa
-from repro_torch.kernels.ref import decode_window_attention_ref
+from repro_torch.kernels.ref import (decode_window_attention_partial_ref,
+                                     decode_window_attention_ref)
 
 SHAPES = [                       # (nv, deg, rows, feat)
     (1, 1, 1, 1),
@@ -562,6 +563,36 @@ def test_window_attention_splits_past_kv_len_weigh_nothing(cuda):
     assert float((got - want).abs().max()) <= 1e-5
     # kv_len = 1 returns row 0 of V exactly
     assert torch.equal(got[0], v[0, 0].float().repeat_interleave(4, dim=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,w,dh", ATTN_SHAPES)
+def test_window_attention_partial_entry_on_card(cuda, b, h, hkv, w, dh,
+                                                dtype):
+    """The partial entry (one launch, unnormalised o with its m and l)
+    against its plain version, a request with no row among them: o / l
+    within 1e-5 of the whole attention, (0, -inf, 0) for the empty one,
+    and m, l and o within 1e-5 relative of the plain partial's."""
+    q, k, v, kvl = _attn_inputs(b, h, hkv, w, dh, dtype, cuda)
+    kvl[-1] = 0
+    before = wa.window_attention.launches
+    o, m, l = wa.window_attention_partial(q, k, v, kvl)
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + 1
+    po, pm, pl = decode_window_attention_partial_ref(q, k, v, kvl)
+    assert (o[-1] == 0).all() and torch.isinf(m[-1]).all() \
+        and (l[-1] == 0).all()
+    if b > 1:
+        full = decode_window_attention_ref(q[:-1], k[:-1], v[:-1], kvl[:-1])
+        got = o[:-1] / l[:-1][..., None]
+        assert float((got - full).abs().max()) <= 1e-5
+        assert torch.allclose(m[:-1], pm[:-1], rtol=1e-5, atol=1e-5)
+        assert torch.allclose(l[:-1], pl[:-1], rtol=1e-5, atol=0)
+        # o is relative to each launch's own m: compare it scaled to m
+        scale = torch.exp(pm[:-1] - m[:-1])[..., None]
+        assert torch.allclose(o[:-1] * scale, po[:-1], rtol=1e-5,
+                              atol=1e-5 * float(po.abs().max()))
 
 
 def _edge_lens(w, chunk):

@@ -16,7 +16,7 @@ from repro_torch import configs
 from repro_torch.configs.base import INPUT_SHAPES, InputShape
 from repro_torch.data import pipeline
 from repro_torch.kernels import window_attention as wa
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, shardctx
 from repro_torch.launch.mesh import parse_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
@@ -271,9 +271,12 @@ def test_roofline_terms_on_the_h100():
         "name", "mesh", "chips", "t_compute_s", "t_memory_s",
         "t_collective_s", "bottleneck", "model_flops", "hlo_flops",
         "usefulness", "hbm_per_chip_gb"}
-    pod = analysis.Roofline("x", "16x16", 256, 1.0, 1.0, None, 1.0, 1.0)
-    assert pod.t_collective is None and pod.bottleneck in ("compute",
-                                                           "memory")
+    pod = analysis.Roofline("x", "16x16", 256, hlo_flops=256 * 989e12,
+                            hlo_bytes=256 * 3.35e12,
+                            coll_bytes=256 * 3 * 450e9, model_flops=1.0,
+                            bytes_per_chip=1.0)
+    assert (pod.t_compute, pod.t_memory, pod.t_collective) == (1.0, 1.0, 3.0)
+    assert pod.bottleneck == "collective"
 
 
 # ----------------------------------------------------------------------
@@ -335,15 +338,22 @@ def test_cli_dry_runs_a_full_size_combination(cli_rows, case):
     assert (out_dir / "optrace" / f"{arch}__{shape}__{mesh}.jsonl.gz").exists()
     if mesh == "1":
         assert row["chips"] == 1 and row["t_collective_s"] == 0.0
-        assert row["hlo"]["coll_bytes"] == 0 and row["activation_split"] == 1
+        assert row["hlo"]["coll_bytes"] == 0
+        assert "coll_breakdown" not in row["hlo"]
         # one card holds every argument whole
         model = pipeline.param_specs_struct(cfg)
         params = sum(p.numel() * p.element_size() for p in model.parameters())
         assert mem["argument_gb"] * 1e9 > params
     else:
-        assert row["chips"] == 256 and row["t_collective_s"] is None
-        assert row["hlo"]["coll_bytes"] is None
-        assert row["activation_split"] > 1
+        # one device's walk of the partitioned step, times the chips
+        assert row["chips"] == 256 and row["t_collective_s"] > 0
+        br = row["hlo"]["coll_breakdown"]
+        assert row["hlo"]["coll_bytes"] == br["total"] > 0
+        assert set(br) == set(op_walk.COLLECTIVES) | {"counts", "total"}
+        assert sum(br[k] for k in op_walk.COLLECTIVES) == br["total"]
+        assert row["t_collective_s"] == pytest.approx(
+            br["total"] / (256 * analysis.LINK_BW))
+        assert row["bottleneck"] in ("compute", "memory", "collective")
 
 
 def test_cli_decode_counts_the_attention_kernel(cli_rows):
@@ -369,6 +379,30 @@ def test_reanalyze_reproduces_the_rows(cli_rows, mesh):
                     "hbm_per_chip_gb", "hlo", "bytes_by_op", "memory",
                     "ops"):
             assert row[key] == want[key], key
+
+
+@pytest.mark.parametrize("arch, kind", [("qwen3-moe-235b-a22b", "train"),
+                                        ("qwen3-4b", "decode"),
+                                        ("falcon-mamba-7b", "prefill")])
+def test_one_card_rows_do_not_see_the_hints(arch, kind, monkeypatch):
+    """On one card the hints add nothing: the row's FLOPs, bytes and peak
+    equal a walk of the same step with ``shardctx``'s hints replaced by
+    the identity, and the walk has no collective record."""
+    cfg = configs.get(arch).reduced()
+    shape = SMALL[kind]
+    row = dryrun.dry_run(cfg, shape, parse_mesh("1"), verbose=False)
+    with_hints, _ = dryrun.walk_step(cfg, shape)
+    for name in ("hint", "residual_hint", "heads_hint"):
+        monkeypatch.setattr(shardctx, name, lambda x, *a: x)
+    without, _ = dryrun.walk_step(cfg, shape)
+    assert dict(with_hints.trace) == dict(without.trace)
+    assert with_hints.peak_bytes == without.peak_bytes
+    cost = op_walk.cost_from_records(without.trace)
+    assert (row["hlo_flops"], row["hlo"]["hbm_bytes"]) == (
+        cost.flops, int(cost.bytes))
+    assert row["memory"]["temp_gb"] == without.peak_bytes / 1e9
+    assert not any(rec[0].startswith("c10d.") for rec, _ in without.trace)
+    assert row["t_collective_s"] == 0.0 and cost.coll_bytes == 0
 
 
 def test_cli_needs_a_combination():

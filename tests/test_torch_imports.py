@@ -87,3 +87,30 @@ def test_the_tooling_modules_are_scanned():
                 "roofline/op_walk.py", "roofline/analysis.py",
                 "roofline/reanalyze.py", "data/pipeline.py"):
         assert pkg / rel in FILES, rel
+
+
+def test_the_spmd_modules_are_scanned():
+    """The partitioned dry run's modules (the torch mesh, the hand-written
+    sharding rules, the sharded B4) stand alone too; the one import from
+    ``torch.testing._internal`` (the fake process group) sits in
+    ``launch/mesh.py``'s ``torch_mesh`` and nowhere else; and the gloo
+    ranks' job module imports no JAX."""
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("launch/mesh.py", "launch/local_rules.py",
+                "launch/shardctx.py", "kernels/window_attention_spmd.py"):
+        assert pkg / rel in FILES, rel
+    internal = []
+    for path in FILES:
+        tree = ast.parse(path.read_text(), str(path))
+        spans = [(f.name, f.lineno, f.end_lineno) for f in ast.walk(tree)
+                 if isinstance(f, ast.FunctionDef)]
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.ImportFrom) and node.module
+                    and node.module.startswith("torch.testing")):
+                inside = [n for n, a, b in spans if a <= node.lineno <= b]
+                internal.append((path.relative_to(ROOT).as_posix(),
+                                 tuple(inside)))
+    assert internal == [("src/repro_torch/launch/mesh.py", ("torch_mesh",))]
+    jobs = ROOT / "tests" / "torch_spmd_jobs.py"
+    assert not [n for _, n in _imported(ast.parse(jobs.read_text()))
+                if n in FORBIDDEN]

@@ -21,7 +21,7 @@ from repro.apps import cc as ref_cc
 from repro.apps import pagerank as ref_pagerank
 from repro.core import exec as ref_exec
 from repro.core import sync as ref_sync
-from repro.core.coloring import distance2_coloring
+from repro.core.coloring import distance2_coloring as ref_distance2_coloring
 from repro.core.engine_locking import conflict_winners as ref_conflict_winners
 from repro.core.engine_sequential import run_sequential as ref_run_sequential
 from repro.core.graph import zipf_edges
@@ -32,7 +32,8 @@ from repro_torch import api, interop
 from repro_torch.apps import cc, pagerank
 from repro_torch.core import exec as port_exec
 from repro_torch.core import sync as port_sync
-from repro_torch.core.coloring import greedy_coloring, single_color
+from repro_torch.core.coloring import (distance2_coloring, greedy_coloring,
+                                       single_color)
 from repro_torch.core.engine_locking import (LockingEngine, conflict_winners,
                                              conflict_winners_windowed)
 from repro_torch.core.engine_sequential import run_sequential
@@ -213,7 +214,9 @@ def test_full_consistency_needs_distance2_coloring():
         ref = run_sequential(g, upd, max_supersteps=1)[0]
         return st.vertex_data["x"], ref["x"]
 
-    got2, want2 = run_with(distance2_coloring(20, edges))
+    colors2 = distance2_coloring(20, edges)
+    assert np.array_equal(colors2, ref_distance2_coloring(20, edges))
+    got2, want2 = run_with(colors2)
     assert torch.equal(got2, want2)
     got1, want1 = run_with(greedy_coloring(20, edges))
     assert not torch.allclose(got1, want1)

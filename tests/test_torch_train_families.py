@@ -134,7 +134,8 @@ def inplace_apply_train(p, cfg, x):
     """``apply_train`` as it was, over ``inplace_scan_chunk``."""
     b, s, _ = x.shape
     di, ds = cfg.d_inner, cfg.ssm.d_state
-    xc, z, dt, bmat, cmat = TMamba._ssm_inputs(p, cfg, x @ p.in_proj)
+    xc, z, dt, bmat, cmat = TMamba._ssm_inputs(p, cfg,
+                                               *TMamba._in_proj(p, cfg, x))
     a = -torch.exp(p.A_log)
     xf = xc.float()
     h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
