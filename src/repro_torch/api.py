@@ -53,13 +53,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.exec import EngineState, validate_dispatch
+from repro_torch.core.exec import EngineState, tasks_left, validate_dispatch
 from repro_torch.core.registry import (describe_schedulers,
                                        get_distributed, get_scheduler,
                                        list_schedulers)
 from repro_torch.core.sync import SyncOp, tree_map
 from repro_torch.core.update import Consistency, UpdateFn
 from repro_torch.device import resolve_device
+from repro_torch.profile.trace import span
 
 __all__ = ["RunResult", "EngineSpec", "run", "serve", "build_engine",
            "list_schedulers", "describe_schedulers", "SERVE_ONLY_KWARGS"]
@@ -573,35 +574,38 @@ def run(graph, update: UpdateFn, *, scheduler: str = "chromatic",
     state = engine.init_state(active, priority)
     records = [] if trace is not None else None
     steps = 0
-    while True:
-        if num_supersteps is not None:
-            if steps >= num_supersteps:
+    with span("job"):
+        while True:
+            if num_supersteps is not None:
+                if steps >= num_supersteps:
+                    break
+            elif (state.superstep >= engine.max_supersteps
+                  or not tasks_left(state)):
                 break
-        elif (not bool(state.active.any())
-              or state.superstep >= engine.max_supersteps):
-            break
-        if until is not None and until(state.globals):
-            break
-        if recorder is not None:
-            # probe the launch shape first (selection only), then time
-            # the step itself; the first step at each shape may build a
-            # kernel and is marked cold so fits skip it
-            probe = engine.profile_probe(state)
-            key = (probe["mode"], probe.get("width"), probe.get("rows"))
-            _synchronize(device)
-            t0 = time.perf_counter()
-            state = engine._superstep(state)
-            _synchronize(device)
-            wall_us = (time.perf_counter() - t0) * 1e6
-            recorder.record_step(wall_us=wall_us,
-                                 cold=key not in seen_shapes,
-                                 superstep=steps, **probe)
-            seen_shapes.add(key)
-        else:
-            state = engine._superstep(state)
-        steps += 1
-        if records is not None:
-            records.append(trace_fn(state))
+            if until is not None:
+                with span("syncs"):
+                    if until(state.globals):
+                        break
+            if recorder is not None:
+                # probe the launch shape first (selection only), then
+                # time the step itself; the first step at each shape may
+                # build a kernel and is marked cold so fits skip it
+                probe = engine.profile_probe(state)
+                key = (probe["mode"], probe.get("width"), probe.get("rows"))
+                _synchronize(device)
+                t0 = time.perf_counter()
+                state = engine._superstep(state)
+                _synchronize(device)
+                wall_us = (time.perf_counter() - t0) * 1e6
+                recorder.record_step(wall_us=wall_us,
+                                     cold=key not in seen_shapes,
+                                     superstep=steps, **probe)
+                seen_shapes.add(key)
+            else:
+                state = engine._superstep(state)
+            steps += 1
+            if records is not None:
+                records.append(trace_fn(state))
     return _result_from_state(state, engine, records, recorder)
 
 

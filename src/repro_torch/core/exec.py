@@ -35,6 +35,22 @@ The port of ``repro.core.exec``:
   probe against a mutated graph (the serving path), and
   ``dirty_scope_mask`` turns mutated vertices into its task set.
 
+Inside a ``repro_torch.profile.tracing()`` context the executor records
+spans at its layer boundaries (``repro_torch.profile.trace.span``; a
+no-op otherwise): ``job`` (``resume`` and ``api.run``'s stepping loop),
+``superstep``, ``phase`` (with its ``superstep`` and ``phase`` ids),
+``select`` (``prepare`` / ``select``), ``gather`` (the scope gather,
+the routing onto the degree buckets, the row activation and the owner
+rows), ``kernel`` (each ``ell_spmv`` / ``ell_fold`` /
+``segment_sum_csr`` call, attribute ``kernel``), ``update`` (the
+aggregator's ``weight`` / ``feature`` / ``combine`` or the dense
+``update_fn``), ``writeback`` (``scatter_result``), ``reschedule``
+(``consume_and_reschedule``) and ``syncs`` (``refresh_syncs`` and the
+drain test).  Its counters: ``slots.real`` (the degrees of the rows a
+phase updates, summed on the device), ``slots.gathered`` (``B x D`` of
+every scope gather) and ``slots.routed`` (the stored slots of every
+routing onto the buckets).
+
 On a hub-split graph both dispatch shapes run stage 1 over virtual rows
 (``[Nv_b, W_b]`` bucket blocks, or ``[B*s, w_cap]`` chunk pseudo-rows of
 a window wider than ``w_cap``) and stage 2, the sum of each owner's
@@ -56,6 +72,7 @@ from repro_torch.kernels.ell_spmv import (ell_fold, ell_fold_bucketed,
                                           ell_spmv_batched,
                                           ell_spmv_bucketed)
 from repro_torch.kernels.segment_combine import segment_sum_csr
+from repro_torch.profile.trace import count, span, tracing_on
 
 
 # ----------------------------------------------------------------------
@@ -323,7 +340,8 @@ def switch_on_window_width(ell, ids, sel, width_fn, operand):
     the widest bucket a selected row lives in (``window_bucket``, one
     device-to-host read), or the only width of a one-bucket graph."""
     widths = ell.scope_widths
-    b = 0 if len(widths) == 1 else ell.window_bucket(ids, sel)
+    with span("select"):
+        b = 0 if len(widths) == 1 else ell.window_bucket(ids, sel)
     return width_fn(widths[b])(operand)
 
 
@@ -342,6 +360,8 @@ def route_batch_to_buckets(ell, ids, sel, w, vals=None):
     row ``i`` is slot ``j % w_cap`` of pseudo-row ``i * n_chunks_max +
     j // w_cap``), each routed to its owner's virtual row.
     """
+    if tracing_on():
+        count("slots.routed", ell.padded_slots)
     if ell.w_cap is not None:
         wc, s_max = ell.w_cap, ell.n_chunks_max
         idl = ids.long()
@@ -397,8 +417,9 @@ def _owner_rows(ell, y_rows, ids, sel):
     if ell.w_cap is None:
         y = y_rows[ell.inv_perm[ids.long()].long()]
     else:
-        y_own = segment_sum_csr(y_rows[ell.inv_perm.long()],
-                                ell.vrow_offset)
+        with span("kernel", kernel="segment_sum_csr"):
+            y_own = segment_sum_csr(y_rows[ell.inv_perm.long()],
+                                    ell.vrow_offset)
         y = y_own[ids.long()]
     return torch.where(sel[:, None], y, 0.0)
 
@@ -408,7 +429,8 @@ def _combine_chunks(y_part, b: int, n_chunk: int):
     row's chunks summed in chunk order (``segment_sum_csr``)."""
     offsets = torch.arange(b + 1, dtype=torch.int64,
                            device=y_part.device) * n_chunk
-    return segment_sum_csr(y_part, offsets)
+    with span("kernel", kernel="segment_sum_csr"):
+        return segment_sum_csr(y_part, offsets)
 
 
 def bucketed_dense_fold(ell, ids, sel, w, vals):
@@ -416,10 +438,23 @@ def bucketed_dense_fold(ell, ids, sel, w, vals):
     bucket (one launch for each 16 non-empty buckets), at exactly the kernel path's ``[Nv_b, W_b]``
     shapes and with the same row gate, so both arms run one
     accumulation."""
-    row_masks = ell.bucket_slices(ell.row_activation(ids, sel))
-    w_blocks, v_blocks = route_batch_to_buckets(ell, ids, sel, w, vals)
-    y_rows = ell_fold_bucketed(w_blocks, v_blocks, row_masks=row_masks)
-    return _owner_rows(ell, y_rows, ids, sel)
+    with span("gather"):
+        row_masks = ell.bucket_slices(ell.row_activation(ids, sel))
+        w_blocks, v_blocks = route_batch_to_buckets(ell, ids, sel, w, vals)
+    with span("kernel", kernel="ell_fold_bucketed"):
+        y_rows = ell_fold_bucketed(w_blocks, v_blocks, row_masks=row_masks)
+    with span("gather"):
+        return _owner_rows(ell, y_rows, ids, sel)
+
+
+def _gather(struct, vertex_data, edge_data, ids, globals_, **kw):
+    """``gather_scopes`` in a ``gather`` span, its ``B x D`` slots
+    counted."""
+    with span("gather"):
+        scope = gather_scopes(struct, vertex_data, edge_data, ids,
+                              globals_, **kw)
+    count("slots.gathered", scope.nbr_ids.numel())
+    return scope
 
 
 def dispatch_update(struct, update_fn: UpdateFn, vertex_data, edge_data,
@@ -445,9 +480,10 @@ def dispatch_update(struct, update_fn: UpdateFn, vertex_data, edge_data,
     """
     agg = update_fn.aggregator
     if agg is None:
-        scope = gather_scopes(struct, vertex_data, edge_data, ids, globals_,
-                              rows=rows)
-        return scope, update_fn(scope)
+        scope = _gather(struct, vertex_data, edge_data, ids, globals_,
+                        rows=rows)
+        with span("update"):
+            return scope, update_fn(scope)
     # a window wider than w_cap (it holds a hub) runs as its chunks
     w_cap = struct.ell.w_cap
     win_w = rows.nbrs.shape[1] if batch_shaped else 0
@@ -459,32 +495,43 @@ def dispatch_update(struct, update_fn: UpdateFn, vertex_data, edge_data,
 
     row_sel = sel.repeat_interleave(n_chunk) if n_chunk > 1 else sel
     if not use_kernel:
-        scope = gather_scopes(struct, vertex_data, edge_data, ids, globals_,
-                              rows=rows)
-        w = torch.where(scope.nbr_mask, agg.weight(scope), 0.0).float()
-        vals = agg.feature(scope.nbr_data).float()
+        scope = _gather(struct, vertex_data, edge_data, ids, globals_,
+                        rows=rows)
+        with span("update"):
+            w = torch.where(scope.nbr_mask, agg.weight(scope), 0.0).float()
+            vals = agg.feature(scope.nbr_data).float()
         if not batch_shaped:
             y = bucketed_dense_fold(struct.ell, ids, sel, w, vals)
         else:
-            y = ell_fold(chunked(w), chunked(vals), row_mask=row_sel)
+            with span("kernel", kernel="ell_fold"):
+                y = ell_fold(chunked(w), chunked(vals), row_mask=row_sel)
             if n_chunk > 1:
                 y = _combine_chunks(y, w.shape[0], n_chunk)
-        return scope, agg.combine(scope, y)
-    scope = gather_scopes(struct, vertex_data, edge_data, ids, globals_,
-                          with_nbr_data=False, rows=rows)
-    x = agg.feature(vertex_data).float().contiguous()
-    w = torch.where(scope.nbr_mask, agg.weight(scope), 0.0).float()
+        with span("update"):
+            return scope, agg.combine(scope, y)
+    scope = _gather(struct, vertex_data, edge_data, ids, globals_,
+                    with_nbr_data=False, rows=rows)
+    with span("update"):
+        x = agg.feature(vertex_data).float().contiguous()
+        w = torch.where(scope.nbr_mask, agg.weight(scope), 0.0).float()
     if batch_shaped:
-        y = ell_spmv_batched(chunked(scope.nbr_ids), chunked(w), x,
-                             row_mask=row_sel)
+        with span("kernel", kernel="ell_spmv_batched"):
+            y = ell_spmv_batched(chunked(scope.nbr_ids), chunked(w), x,
+                                 row_mask=row_sel)
         if n_chunk > 1:
             y = _combine_chunks(y, w.shape[0], n_chunk)
-        return scope, agg.combine(scope, y)
+        with span("update"):
+            return scope, agg.combine(scope, y)
     ell = struct.ell
-    w_blocks, _ = route_batch_to_buckets(ell, ids, sel, w)
-    row_masks = ell.bucket_slices(ell.row_activation(ids, sel))
-    y_rows = ell_spmv_bucketed(ell.nbrs, w_blocks, x, row_masks=row_masks)
-    return scope, agg.combine(scope, _owner_rows(ell, y_rows, ids, sel))
+    with span("gather"):
+        w_blocks, _ = route_batch_to_buckets(ell, ids, sel, w)
+        row_masks = ell.bucket_slices(ell.row_activation(ids, sel))
+    with span("kernel", kernel="ell_spmv_bucketed"):
+        y_rows = ell_spmv_bucketed(ell.nbrs, w_blocks, x, row_masks=row_masks)
+    with span("gather"):
+        y = _owner_rows(ell, y_rows, ids, sel)
+    with span("update"):
+        return scope, agg.combine(scope, y)
 
 
 def _apply_selected(struct, update_fn: UpdateFn, carry, ids, sel, globals_,
@@ -496,11 +543,14 @@ def _apply_selected(struct, update_fn: UpdateFn, carry, ids, sel, globals_,
     scope, res = dispatch_update(
         struct, update_fn, vdata, edata, ids, sel, globals_,
         use_kernel=use_kernel, rows=rows, batch_shaped=batch_shaped)
-    vdata, edata = scatter_result(struct, vdata, edata, ids, sel, scope, res)
-    active, priority = consume_and_reschedule(
-        active, priority, ids, sel, scope.nbr_ids, scope.nbr_mask, res,
-        nbr_stamp=nbr_stamp)
-    return vdata, edata, active, priority, n_upd + sel.sum()
+    with span("writeback"):
+        vdata, edata = scatter_result(struct, vdata, edata, ids, sel, scope,
+                                      res)
+    with span("reschedule"):
+        active, priority = consume_and_reschedule(
+            active, priority, ids, sel, scope.nbr_ids, scope.nbr_mask, res,
+            nbr_stamp=nbr_stamp)
+        return vdata, edata, active, priority, n_upd + sel.sum()
 
 
 def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
@@ -519,15 +569,19 @@ def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
     trailing zero-weight slots add exactly +0.0.
     """
     vdata, edata, active, priority, n_upd = carry
-    sel = valid & active[ids.long()]
+    with span("select"):
+        sel = valid & active[ids.long()]
+    if tracing_on():
+        count("slots.real", (struct.degree[ids.long()] * sel).sum())
     if dispatch == "batch":
         def at_width(w):
             def body(carry):
+                with span("gather"):
+                    rows = struct.struct_rows(ids, width=w)
                 return _apply_selected(
                     struct, update_fn, carry, ids, sel, globals_,
                     nbr_stamp=nbr_stamp, use_kernel=use_kernel,
-                    rows=struct.struct_rows(ids, width=w),
-                    batch_shaped=True)
+                    rows=rows, batch_shaped=True)
             return body
         return switch_on_window_width(struct.ell, ids, sel, at_width, carry)
     return _apply_selected(
@@ -547,6 +601,13 @@ def refresh_syncs(syncs: Sequence[SyncOp], globals_: dict, vertex_data,
         if (superstep + 1) % max(s.tau, 1) == 0:
             new_globals[s.key] = s.run(vertex_data)
     return new_globals
+
+
+def tasks_left(state: EngineState) -> bool:
+    """The drain test: whether the task set holds a task (one
+    device-to-host read)."""
+    with span("syncs"):
+        return bool(state.active.any())
 
 
 # ----------------------------------------------------------------------
@@ -641,23 +702,30 @@ class ExecutorCore:
 
     def _superstep(self, state: EngineState) -> EngineState:
         """One superstep: every phase in order, then the sync refresh."""
-        ctx = self.prepare(state)
-        stamp = self.nbr_stamp(state)
-        carry = (state.vertex_data, state.edge_data, state.active,
-                 state.priority, state.n_updates)
-        for c in range(self.n_phases):
-            ids, valid = self.select(c, ctx)
-            carry = apply_batch(
-                self.graph, self.update_fn, carry, ids, valid,
-                state.globals, nbr_stamp=stamp, use_kernel=self.use_kernel,
-                dispatch=self.resolve_dispatch(ids.shape[0]))
-        vdata, edata, active, priority, n_upd = carry
+        step = state.superstep
+        with span("superstep", superstep=step):
+            with span("select"):
+                ctx = self.prepare(state)
+                stamp = self.nbr_stamp(state)
+            carry = (state.vertex_data, state.edge_data, state.active,
+                     state.priority, state.n_updates)
+            for c in range(self.n_phases):
+                with span("phase", superstep=step, phase=c):
+                    with span("select"):
+                        ids, valid = self.select(c, ctx)
+                    carry = apply_batch(
+                        self.graph, self.update_fn, carry, ids, valid,
+                        state.globals, nbr_stamp=stamp,
+                        use_kernel=self.use_kernel,
+                        dispatch=self.resolve_dispatch(ids.shape[0]))
+            vdata, edata, active, priority, n_upd = carry
+            with span("syncs"):
+                globals_ = refresh_syncs(self.syncs, state.globals, vdata,
+                                         step)
         return EngineState(
             vertex_data=vdata, edge_data=edata, active=active,
-            priority=priority,
-            globals=refresh_syncs(self.syncs, state.globals, vdata,
-                                  state.superstep),
-            superstep=state.superstep + 1, n_updates=n_upd)
+            priority=priority, globals=globals_, superstep=step + 1,
+            n_updates=n_upd)
 
     def run(self, active=None, priority=None,
             num_supersteps: int | None = None) -> EngineState:
@@ -671,14 +739,15 @@ class ExecutorCore:
         """Continue from an existing EngineState: exactly
         ``num_supersteps`` steps, or until the task set drains or
         ``max_supersteps`` is reached."""
-        if num_supersteps is not None:
-            for _ in range(num_supersteps):
+        with span("job"):
+            if num_supersteps is not None:
+                for _ in range(num_supersteps):
+                    state = self._superstep(state)
+                return state
+            while (state.superstep < self.max_supersteps
+                   and tasks_left(state)):
                 state = self._superstep(state)
             return state
-        while state.superstep < self.max_supersteps and bool(
-                state.active.any()):
-            state = self._superstep(state)
-        return state
 
     # -- stepping against a mutated graph (the serving path) -----------
     def step_on(self, graph: DataGraph, state: EngineState) -> EngineState:
