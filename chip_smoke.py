@@ -15,8 +15,10 @@ Phases (any failure exits non-zero and prints no result):
                  card, at the PageRank path's full-size shapes: every
                  degree bucket of the 2,097,152-vertex Zipf graph at F=1
                  as a launch of its own, then the whole sweep as one
-                 launch (``ell_spmv_bucketed``); shapes that stress the
-                 mapping (an empty bucket, widths 3, 667, 1,024 and
+                 launch (``ell_spmv_bucketed``, BSP's phase); each color
+                 phase of the chromatic engine's color-major plan as one
+                 launch over its (color, width) blocks; shapes that
+                 stress the mapping (an empty bucket, widths 3, 667, 1,024 and
                  5,000, an all-masked bucket, masked rows reading inf),
                  each alone and all in one launch; the sweep cut into
                  20 buckets, more than one launch takes (two launches);
@@ -34,8 +36,9 @@ Phases (any failure exits non-zero and prints no result):
                  before and read just after; the fixed point, the top-2
                  and total-rank syncs checked against float64 on the host;
 5. als kernels — ``als_normal_eq`` against its plain version, float32
-                 bitwise, at the ALS path's full-size shapes (the fold of
-                 each color phase, with its real slots and empty rows,
+                 bitwise, at the ALS path's full-size shapes (the folds
+                 of each color phase, one a (color, width) group of the
+                 engine's color-major plan, with their real slots,
                  every degree bucket with x = w, ``als_normal_eq_bucketed``
                  over them all as one launch beside the per-bucket sum,
                  and d = 5 and d = 64 at the widest bucket's shape), timed
@@ -543,6 +546,60 @@ def stress_buckets(torch, gen, dev, n_src):
     return out
 
 
+def plan_phase_cases(torch, ctx, x, gen, flush):
+    """B1 at the chromatic engine's launch shapes: each color phase of
+    its color-major plan (``ChromaticEngine(...).plan``) as the main
+    path launches it, the phase's (color, width) blocks in one
+    ``ell_spmv_bucketed`` call, bitwise the plain version block by
+    block, timed beside it with the bound of those blocks."""
+    from repro_torch.core.engine_chromatic import ChromaticEngine
+    from repro_torch.kernels.ell_spmv import (MAX_BUCKETS, ell_spmv,
+                                              ell_spmv_bucketed,
+                                              ell_spmv_plain)
+    graph = ctx["graph"]
+    w_edge = graph.edge_data["w"]
+    plan = ChromaticEngine(graph, ctx["update"]).plan
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0, groups=0)
+    for c, (ids, _, blocks) in enumerate(plan.phases):
+        nbrs = [r.nbrs for r in blocks.rows]
+        w = [torch.where(r.nbr_mask, w_edge[r.edge_ids.long()], 0.0)
+             .contiguous() for r in blocks.rows]
+        masks = [torch.rand(nb.shape[0], generator=gen, device=x.device)
+                 < 0.8 for nb in nbrs]
+        before = ell_spmv.launches
+        y = ell_spmv_bucketed(nbrs, w, x, masks)
+        launched = ell_spmv.launches - before
+        yp = torch.cat([ell_spmv_plain(*a, x, m)
+                        for *a, m in zip(nbrs, w, masks)])
+        torch.cuda.synchronize()
+        mism = bits_differ(torch, y, yp)
+        if mism or launched != -(-len(nbrs) // MAX_BUCKETS):
+            raise AssertionError(f"plan phase {c}: {mism} f32 elements "
+                                 f"differ, {launched} launches")
+        ms, _ = time_cuda(torch, lambda: ell_spmv_bucketed(nbrs, w, x,
+                                                           masks), 20, flush)
+        plain_ms, _ = time_cuda(torch, lambda: [
+            ell_spmv_plain(*a, x, m) for *a, m in zip(nbrs, w, masks)], 3,
+            flush)
+        nv = ids.shape[0]
+        touched = int(torch.unique(torch.cat(
+            [r.nbrs[r.nbr_mask] for r in blocks.rows])).numel())
+        bms, by = bound_ms(nv, sum(nb.numel() for nb in nbrs), touched, 1,
+                           4, nv)
+        log(f"plan phase {c:>2} [{nv} rows, widths "
+            f"{[nb.shape[1] for nb in nbrs]}]: {launched} launch, "
+            f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {bms:.4f} ({by}), "
+            f"mismatches 0")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
+                     ("launches", launched), ("groups", len(nbrs))):
+            tot[k] += v
+    log(f"a chromatic superstep on the plan ({len(plan.phases)} phases, "
+        f"{tot['groups']} groups, {plan.store.padded_slots} slots): "
+        f"{tot['launches']} launches, kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    ctx["kernel_plan_superstep"] = tot
+
+
 def phase_kernels(torch, ctx):
     """Kernel vs plain version at the main path's shapes: every bucket as
     a launch of its own, the whole sweep as one launch, shapes that
@@ -666,6 +723,7 @@ def phase_kernels(torch, ctx):
         raise AssertionError(f"{len(parts)}-bucket sweep: {mism} f32 "
                              f"elements differ, {launched} launches")
     del csr, ys, plains, y20, parts
+    plan_phase_cases(torch, ctx, x, gen, flush)
 
     # shapes that stress the mapping: each alone, then all in one launch
     n_src = 100_000
@@ -996,14 +1054,24 @@ def als_bound(nv, slots, real, rows, d, fold=False, full=False):
                                        else "operations")
 
 
-def color_scope(torch, graph, color):
-    """The dense scope one chromatic phase of ALS gathers: the color's
-    vertices padded to the largest color, at ``[Cmax, max_deg]``."""
-    from repro_torch.core.exec import build_color_batches
+def plan_scopes(torch, graph, plan, color):
+    """The dense scopes one chromatic phase of ALS gathers on the
+    engine's color-major plan (``plan``, a ``ChromaticEngine``'s): one a
+    (color, stored width) group, each ``[n_g, W_g]``."""
     from repro_torch.core.update import gather_scopes
-    ids, _ = build_color_batches(graph.colors.cpu().numpy())
-    ids = torch.from_numpy(ids[color]).to(graph.device)
-    return gather_scopes(graph, graph.vertex_data, graph.edge_data, ids, {})
+    ids, _, blocks = plan.phases[color]
+    return [gather_scopes(graph, graph.vertex_data, graph.edge_data,
+                          ids[a:b], {}, rows=rows)
+            for a, b, rows in zip(blocks.offsets, blocks.offsets[1:],
+                                  blocks.rows)]
+
+
+def als_plan(graph):
+    """The color-major plan ALS's chromatic engine runs ``graph`` on."""
+    from repro_torch.apps import als
+    from repro_torch.core.engine_chromatic import ChromaticEngine
+    d = graph.vertex_data["w"].shape[1]
+    return ChromaticEngine(graph, als.make_update(d)).plan
 
 
 def als_case(torch, label, nbrs, mask, r, x, flush):
@@ -1077,15 +1145,16 @@ def phase_als_kernels(torch, ctx):
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     log("times: device ms (call ms with the host's enqueue), L2 flushed")
     folds = []
+    plan = als_plan(graph)
     for c in range(graph.n_colors):
-        scope = color_scope(torch, graph, c)
-        X = scope.nbr_data["w"]
-        mask, r = scope.nbr_mask, scope.edge_data["rating"]
-        del scope
-        nv, width = mask.shape
-        folds.append(als_case(torch, f"fold, color {c}", None, mask, r,
-                              X.view(nv * width, d), flush))
-        del X, mask, r
+        for scope in plan_scopes(torch, graph, plan, c):
+            X = scope.nbr_data["w"]
+            mask, r = scope.nbr_mask, scope.edge_data["rating"]
+            nv, width = mask.shape
+            folds.append(als_case(torch, f"fold, color {c} W={width}", None,
+                                  mask, r, X.reshape(nv * width, d), flush))
+            del scope, X, mask, r
+    del plan
     ratings = graph.edge_data["rating"]
     r_blocks = [ratings[e.long()].contiguous() for e in ell.edge_ids]
     w = graph.vertex_data["w"]
@@ -1135,12 +1204,14 @@ def phase_als_kernels(torch, ctx):
     ctx["als_folds"] = folds
 
 
-def normal_equations(torch, graph, color):
-    """``(A, b)`` of one ALS color phase on ``graph``'s current factors."""
+def normal_equations(torch, graph, plan, color):
+    """``(A, b)`` of one ALS color phase on ``graph``'s current factors,
+    one fold a group of the phase's plan, as the update folds them."""
     from repro_torch.kernels.als_normal_eq import als_normal_eq_fold
-    scope = color_scope(torch, graph, color)
-    return als_normal_eq_fold(scope.nbr_mask, scope.edge_data["rating"],
-                              scope.nbr_data["w"])
+    ab = [als_normal_eq_fold(sc.nbr_mask, sc.edge_data["rating"],
+                             sc.nbr_data["w"])
+          for sc in plan_scopes(torch, graph, plan, color)]
+    return torch.cat([a for a, _ in ab]), torch.cat([b for _, b in ab])
 
 
 def phase_als_parity(torch, ctx):
@@ -1161,12 +1232,13 @@ def phase_als_parity(torch, ctx):
     # the same factors (initial, then the GPU run's final ones) on both
     # devices: the kernel's normal equations equal the plain version's
     n_cmp = 0
+    plan_c, plan_g = als_plan(g), als_plan(g.to(dev))
     for vdata in (g.vertex_data, gpu.vertex_data):
         gv = dataclasses.replace(g, vertex_data={
             k: v.cpu() for k, v in vdata.items()})
         for c in range(g.n_colors):
-            a_c, b_c = normal_equations(torch, gv, c)
-            a_g, b_g = normal_equations(torch, gv.to(dev), c)
+            a_c, b_c = normal_equations(torch, gv, plan_c, c)
+            a_g, b_g = normal_equations(torch, gv.to(dev), plan_g, c)
             if not (torch.equal(a_g.cpu(), a_c)
                     and torch.equal(b_g.cpu(), b_c)):
                 raise AssertionError(f"normal equations of color {c} differ"
@@ -1223,11 +1295,13 @@ def phase_als_main(torch, ctx):
     launches = als_normal_eq.launches
     ctx.setdefault("launches", {})["als_normal_eq"] = launches
     peak = torch.cuda.max_memory_allocated()
+    groups = sum(len(blocks.rows) for _, _, blocks in res.engine.plan.phases)
     log(f"full-width ALS: {res.superstep} supersteps, {res.n_updates} "
         f"updates ({g.n_vertices} vertices), {wall:.3f} s "
         f"({1e3 * wall / max(res.superstep, 1):.2f} ms/superstep), "
         f"als_normal_eq launches {launches} (expected "
-        f"{2 * ALS_SUPERSTEPS}: 2 colors a superstep), ell_spmv launches "
+        f"{groups * ALS_SUPERSTEPS}: one a group of the 2 colors' phase "
+        f"plan, {groups} a superstep), ell_spmv launches "
         f"{ell_spmv.launches}, peak device memory {peak / 2**30:.2f} GiB")
     if launches <= 0:
         raise AssertionError("the ALS path never launched als_normal_eq")
@@ -6051,7 +6125,8 @@ def main() -> int:
         "launches": ctx["launches"]["als_normal_eq"],
         "max_abs_err": max(c["max_abs_err"] for c in ctx["als_cases"]
                            + ctx["dist_cases"]["als_normal_eq"]),
-        # the main path's launches of one superstep: one fold per color
+        # the main path's launches of one superstep: one fold a group of
+        # the color-major plan
         **{k: sum(c[k] for c in folds)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "/".join(sorted({c["bound_by"] for c in folds})),

@@ -48,8 +48,9 @@ aggregator's ``weight`` / ``feature`` / ``combine`` or the dense
 (``consume_and_reschedule``) and ``syncs`` (``refresh_syncs`` and the
 drain test).  Its counters: ``slots.real`` (the degrees of the rows a
 phase updates, summed on the device), ``slots.gathered`` (``B x D`` of
-every scope gather) and ``slots.routed`` (the stored slots of every
-routing onto the buckets).
+every scope gather), ``slots.routed`` (the stored slots of every
+routing onto the buckets) and ``phases.fallback`` (the bucket phases
+gathered at ``max_deg`` and routed, with no ``PhaseBlocks`` plan).
 
 On a hub-split graph both dispatch shapes run stage 1 over virtual rows
 (``[Nv_b, W_b]`` bucket blocks, or ``[B*s, w_cap]`` chunk pseudo-rows of
@@ -60,14 +61,15 @@ partials, through the ``segment_combine`` CUDA kernel
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.graph import DataGraph
+from repro_torch.core.graph import DataGraph, EllRows
 from repro_torch.core.sync import SyncOp
-from repro_torch.core.update import UpdateFn, gather_scopes, scatter_result
+from repro_torch.core.update import (UpdateFn, UpdateResult, gather_scopes,
+                                     scatter_result)
 from repro_torch.kernels.ell_spmv import (ell_fold, ell_fold_bucketed,
                                           ell_spmv_batched,
                                           ell_spmv_bucketed)
@@ -151,11 +153,14 @@ def build_color_batches(colors: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 # ----------------------------------------------------------------------
 
 def consume_and_reschedule(active, priority, ids, sel, nbr_ids, nbr_mask,
-                           res, nbr_stamp=None):
+                           res, nbr_stamp=None, slot_rows=None):
     """Consume executed tasks and merge the returned task set; returns
     new ``(active, priority)`` tensors.  ``nbr_stamp`` (a float) is the
     priority rescheduled neighbours get instead of the rescheduler's
-    (FIFO insertion stamps).
+    (FIFO insertion stamps).  ``slot_rows`` takes the neighbour slots
+    flat: ``nbr_ids``, ``nbr_mask`` and ``res.resched_nbrs`` are
+    ``[S]``, slot ``s`` belonging to row ``slot_rows[s]`` (a planned
+    phase, whose groups have different widths).
 
     Every scatter takes only its selected entries (a boolean-mask
     compaction).  The reference instead routes unselected entries to an
@@ -174,9 +179,15 @@ def consume_and_reschedule(active, priority, ids, sel, nbr_ids, nbr_mask,
     if res.resched_self is not None:
         active.index_fill_(0, ids[sel & res.resched_self].long(), True)
     if res.resched_nbrs is not None:
-        nmask = nbr_mask & sel[:, None] & res.resched_nbrs
-        rows, slots = nmask.nonzero(as_tuple=True)
-        targets = nbr_ids[rows, slots].long()
+        if slot_rows is None:
+            nmask = nbr_mask & sel[:, None] & res.resched_nbrs
+            rows, slots = nmask.nonzero(as_tuple=True)
+            targets = nbr_ids[rows, slots].long()
+        else:
+            nmask = nbr_mask & sel[slot_rows] & res.resched_nbrs
+            (slots,) = nmask.nonzero(as_tuple=True)
+            rows = slot_rows[slots]
+            targets = nbr_ids[slots].long()
         active.index_fill_(0, targets, True)
         if nbr_stamp is not None:
             # FIFO: neighbours enter the queue stamped with insertion time
@@ -553,9 +564,114 @@ def _apply_selected(struct, update_fn: UpdateFn, carry, ids, sel, globals_,
         return vdata, edata, active, priority, n_upd + sel.sum()
 
 
+class PhaseBlocks(NamedTuple):
+    """A phase laid out in advance (a chromatic engine's color-major
+    plan): its rows fall into groups of one stored width, group ``g``
+    being rows ``offsets[g]:offsets[g + 1]`` of the phase's ``ids`` with
+    adjacency ``rows[g]`` (``[n_g, W_g]`` blocks of the plan's store).
+    ``slot_rows`` (int32) gives the row of every slot of the groups'
+    blocks laid flat one after another."""
+    rows: tuple[EllRows, ...]
+    offsets: tuple[int, ...]
+    slot_rows: torch.Tensor
+
+    @staticmethod
+    def of(rows, offsets, device) -> "PhaseBlocks":
+        """The blocks ``rows`` starting at ``offsets``, with their
+        ``slot_rows``."""
+        slot_rows = [torch.arange(a, b, dtype=torch.int32, device=device)
+                     .repeat_interleave(r.nbrs.shape[1])
+                     for a, b, r in zip(offsets, offsets[1:], rows)]
+        return PhaseBlocks(tuple(rows), tuple(offsets), torch.cat(
+            slot_rows or [torch.zeros(0, dtype=torch.int32, device=device)]))
+
+
+def _joined(scopes, results):
+    """The groups' results as one over the phase's rows, their
+    neighbour slots flat (``[S]``, group after group, as ``slot_rows``
+    lays them): ``(result, nbr_ids, nbr_mask)``, the last two ``None``
+    if nothing reschedules a neighbour."""
+    def cat(ts, flat=False):
+        if ts[0] is None:
+            return None
+        return torch.cat([t.reshape(-1) if flat else t for t in ts])
+    res = UpdateResult(
+        v_data={k: cat([r.v_data[k] for r in results])
+                for k in results[0].v_data},
+        resched_self=cat([r.resched_self for r in results]),
+        resched_nbrs=cat([r.resched_nbrs for r in results], flat=True),
+        priority=cat([r.priority for r in results]))
+    if res.resched_nbrs is None:
+        return res, None, None
+    return (res, cat([sc.nbr_ids for sc in scopes], flat=True),
+            cat([sc.nbr_mask for sc in scopes], flat=True))
+
+
+def _apply_planned(struct, update_fn: UpdateFn, carry, ids, sel, globals_,
+                   plan: PhaseBlocks, *, nbr_stamp, use_kernel: bool):
+    """One phase over its ``PhaseBlocks``: every group's scope gathered
+    from its own block at its stored width (no routing, no host sync),
+    one reduction over all the groups' blocks (``ell_spmv_bucketed``, or
+    ``ell_fold_bucketed`` in the dense arm) whose rows come back in
+    ``ids`` order, each group's update, then one write-back and one
+    reschedule of the whole phase (edge and neighbour data, where an
+    update writes them, group by group).  Every row is reduced in slot
+    order at its group's width, its bucket's or a joined group's wider
+    one, whose trailing empty slots add +0.0 as the routed path's
+    ``max_deg`` ones do, and the phase's tasks merge as one call over
+    the routed batch merges them, so the two are bitwise equal."""
+    vdata, edata, active, priority, n_upd = carry
+    if not plan.rows:
+        return carry
+    cuts = list(zip(plan.offsets, plan.offsets[1:]))
+    agg = update_fn.aggregator
+    lite = agg is not None and use_kernel
+    scopes = [_gather(struct, vdata, edata, ids[a:b], globals_,
+                      with_nbr_data=not lite, rows=rows)
+              for (a, b), rows in zip(cuts, plan.rows)]
+    if agg is None:
+        with span("update"):
+            results = [update_fn(scope) for scope in scopes]
+    else:
+        masks = [sel[a:b] for a, b in cuts]
+        with span("update"):
+            w = [torch.where(sc.nbr_mask, agg.weight(sc), 0.0).float()
+                 for sc in scopes]
+            if lite:
+                x = agg.feature(vdata).float().contiguous()
+            else:
+                vals = [agg.feature(sc.nbr_data).float() for sc in scopes]
+        if lite:
+            with span("kernel", kernel="ell_spmv_bucketed"):
+                y = ell_spmv_bucketed([r.nbrs for r in plan.rows], w, x,
+                                      row_masks=masks)
+        else:
+            with span("kernel", kernel="ell_fold_bucketed"):
+                y = ell_fold_bucketed(w, vals, row_masks=masks)
+        with span("update"):
+            y = torch.where(sel[:, None], y, 0.0)
+            results = [agg.combine(sc, y[a:b])
+                       for sc, (a, b) in zip(scopes, cuts)]
+    with span("update"):
+        res, nbr_ids, nbr_mask = _joined(scopes, results)
+    with span("writeback"):
+        vdata, edata = scatter_result(struct, vdata, edata, ids, sel, None,
+                                      UpdateResult(v_data=res.v_data))
+        for (a, b), scope, r in zip(cuts, scopes, results):
+            if r.edge_data is not None or r.nbr_data is not None:
+                vdata, edata = scatter_result(
+                    struct, vdata, edata, ids[a:b], sel[a:b], scope,
+                    dataclasses.replace(r, v_data={}))
+    with span("reschedule"):
+        active, priority = consume_and_reschedule(
+            active, priority, ids, sel, nbr_ids, nbr_mask, res,
+            nbr_stamp=nbr_stamp, slot_rows=plan.slot_rows)
+    return vdata, edata, active, priority, n_upd + sel.sum()
+
+
 def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
                 nbr_stamp=None, use_kernel: bool = True, rows=None,
-                dispatch: str = "bucket"):
+                dispatch: str = "bucket", plan: PhaseBlocks | None = None):
     """Execute one conflict-free batch: the body every engine shares.
 
     ``carry`` is ``(vertex_data, edge_data, active, priority,
@@ -566,13 +682,21 @@ def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
     ``"bucket"`` gathers scopes at ``max_deg`` and launches every
     bucket's rows, ``"batch"`` runs the whole body at the window's
     snapped width ``[B, W]``.  Both give bitwise-equal results:
-    trailing zero-weight slots add exactly +0.0.
+    trailing zero-weight slots add exactly +0.0.  ``plan`` (bucket
+    dispatch) is the batch laid out in advance, ``ids`` in its order:
+    each group runs at its stored width (``_apply_planned``), bitwise
+    the routed path.  A bucket phase without one counts as
+    ``phases.fallback``.
     """
     vdata, edata, active, priority, n_upd = carry
     with span("select"):
         sel = valid & active[ids.long()]
     if tracing_on():
         count("slots.real", (struct.degree[ids.long()] * sel).sum())
+    if plan is not None:
+        return _apply_planned(
+            struct, update_fn, carry, ids, sel, globals_, plan,
+            nbr_stamp=nbr_stamp, use_kernel=use_kernel)
     if dispatch == "batch":
         def at_width(w):
             def body(carry):
@@ -584,6 +708,7 @@ def apply_batch(struct, update_fn: UpdateFn, carry, ids, valid, globals_, *,
                     rows=rows, batch_shaped=True)
             return body
         return switch_on_window_width(struct.ell, ids, sel, at_width, carry)
+    count("phases.fallback")
     return _apply_selected(
         struct, update_fn, carry, ids, sel, globals_, nbr_stamp=nbr_stamp,
         use_kernel=use_kernel, rows=rows, batch_shaped=False)
@@ -668,6 +793,12 @@ class ExecutorCore:
                                ell.padded_slots, cost_model=self.cost_model,
                                bucket_launches=ell.bucket_launches)
 
+    def phase_batch(self, c: int, ctx):
+        """Phase ``c``'s ``(ids, valid, plan)``: ``select``'s batch, and
+        the ``PhaseBlocks`` a strategy laid it out in (``None``: the
+        phase is gathered and routed as it runs)."""
+        return (*self.select(c, ctx), None)
+
     def profile_probe(self, state: EngineState) -> dict:
         """Launch shape of ``state``'s first phase, for trace records.
 
@@ -712,12 +843,14 @@ class ExecutorCore:
             for c in range(self.n_phases):
                 with span("phase", superstep=step, phase=c):
                     with span("select"):
-                        ids, valid = self.select(c, ctx)
+                        ids, valid, plan = self.phase_batch(c, ctx)
                     carry = apply_batch(
                         self.graph, self.update_fn, carry, ids, valid,
                         state.globals, nbr_stamp=stamp,
                         use_kernel=self.use_kernel,
-                        dispatch=self.resolve_dispatch(ids.shape[0]))
+                        dispatch=("bucket" if plan is not None else
+                                  self.resolve_dispatch(ids.shape[0])),
+                        plan=plan)
             vdata, edata, active, priority, n_upd = carry
             with span("syncs"):
                 globals_ = refresh_syncs(self.syncs, state.globals, vdata,

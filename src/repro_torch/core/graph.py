@@ -61,6 +61,15 @@ FLAT_GATHER_SLOTS = 1 << 27
 # kernels' vector loads need an aligned row base
 SLOT_ALIGN = 64
 
+# ``SlicedEll.regrouped``: a (key, width) group joins the next wider
+# group of its key where its rows, padded to that width, add at most
+# this share of the joined block's slots.  Each group of a chromatic
+# phase runs its own gather, update (a dense update's whole body) and
+# combine launches on the host, which cost more than a few padded slots
+# on the device: an Ising grid's border rows, a group of their own in
+# each color, doubled a Gibbs sweep's launches
+JOIN_PAD_SHARE = 1 / 64
+
 
 def sliced_slot_count(starts: Sequence[int], widths: Sequence[int]) -> int:
     """Stored (= bucket-kernel-computed) slots ``sum_b Nv_b * W_b``."""
@@ -340,6 +349,72 @@ class SlicedEll:
         vid = vid[k < (off[ids + 1].long() - first)[:, None]]
         act[self.inv_perm[vid].long()] = True
         return act
+
+    def regrouped(self, keys: torch.Tensor, n_keys: int) -> tuple:
+        """The same rows stored again, grouped by (``keys[row]``, the
+        row's bucket here) in key-major order, rows ascending within a
+        bucket, each group one block at its bucket's width here: every
+        row's stored slots copied on the device (unsplit storage).  A
+        group joins the next wider group of its key, its rows padded to
+        that width, where that pads at most ``JOIN_PAD_SHARE`` of the
+        joined block's slots.  Returns the new ``SlicedEll`` and, for
+        each key ``0..n_keys-1``, ``(ids, rows, offsets)``: its rows in
+        block order, each group's ``EllRows`` block and where each
+        group starts in ``ids`` (and the end)."""
+        dev = self.device
+        bucket = torch.searchsorted(self._ends, self.inv_perm, right=True)
+        key = keys.to(dev).long() * self.n_buckets + bucket
+        order = torch.sort(key, stable=True).indices
+        group_keys, sizes, widths, stored = [], [], [], []
+        for k, n in zip(*(t.tolist() for t in torch.unique_consecutive(
+                key[order], return_counts=True))):
+            w = self.widths[k % self.n_buckets]
+            if (group_keys and group_keys[-1] // self.n_buckets
+                    == k // self.n_buckets and sizes[-1] * w - stored[-1]
+                    <= JOIN_PAD_SHARE * (sizes[-1] + n) * w):
+                sizes[-1] += n
+                stored[-1] += n * w
+                widths[-1] = w
+                continue
+            group_keys.append(k)
+            sizes.append(n)
+            widths.append(w)
+            stored.append(n * w)
+        widths = tuple(widths)
+        starts = (0, *np.cumsum(sizes).tolist())
+        offs, pad = block_offsets(starts, widths)
+        pos = self.inv_perm.long()[order]
+        first, width = self._row_offset[pos], self._row_width[pos]
+        flat = [torch.full((pad + 1,), fill, dtype=s.dtype, device=dev)
+                for s, fill in zip(self.slots,
+                                   (0, False, self.pad_edge, False))]
+        for g, w in enumerate(widths):
+            a, b = starts[g], starts[g + 1]
+            cols = torch.arange(w, dtype=torch.int32, device=dev)
+            idx = first[a:b, None] + cols
+            idx.masked_fill_(cols >= width[a:b, None], self._pad_slot)
+            idx = idx.view(-1).long()
+            for dst, src in zip(flat, self.slots):
+                dst[offs[g]: offs[g] + idx.numel()] = src[idx]
+        inv_perm = torch.empty_like(self.inv_perm)
+        inv_perm[order] = torch.arange(self.n_rows, dtype=inv_perm.dtype,
+                                       device=dev)
+        store = SlicedEll(widths=widths, starts=starts, n_rows=self.n_rows,
+                          max_deg=self.max_deg, pad_edge=self.pad_edge,
+                          slots=EllRows(*flat), perm=order.int(),
+                          inv_perm=inv_perm)
+        bounds = np.searchsorted(np.asarray(group_keys) // self.n_buckets,
+                                 np.arange(n_keys + 1)).tolist()
+        out = []
+        for g0, g1 in zip(bounds[:-1], bounds[1:]):
+            s0 = store.starts[g0]
+            out.append((store.perm[s0: store.starts[g1]],
+                        tuple(EllRows(store.nbrs[g], store.nbr_mask[g],
+                                      store.edge_ids[g], store.is_src[g])
+                              for g in range(g0, g1)),
+                        tuple(store.starts[g] - s0
+                              for g in range(g0, g1 + 1))))
+        return store, out
 
     def to_padded(self) -> EllRows:
         """The monolithic ``[n_rows, max_deg]`` view (tests, oracles)."""

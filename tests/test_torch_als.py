@@ -418,9 +418,14 @@ def test_update_takes_its_normal_equations_from_the_kernel_entry(
 
     monkeypatch.setattr(als, "als_normal_eq_fold", counted)
     prob = als.synthetic_netflix(40, 30, d=4, density=0.4, device="cpu")
-    api.run(*als.build(prob)[:2], device="cpu", num_supersteps=3)
-    # one fold per color phase, at the scope's [Cmax, max_deg, d]
-    assert calls == [(40, prob.graph.max_deg, 4)] * 6
+    res = api.run(*als.build(prob)[:2], device="cpu", num_supersteps=3)
+    # one fold per group of the color-major phase plan, at the group's
+    # [rows, stored width, d]
+    groups = [tuple(rows.nbrs.shape) + (4,)
+              for _, _, blocks in res.engine.plan.phases
+              for rows in blocks.rows]
+    assert len(res.engine.plan.phases) == 2 and len(groups) > 2
+    assert calls == groups * 3
 
 
 def test_update_keeps_tf32_off_and_restores_the_setting(monkeypatch):
@@ -434,8 +439,11 @@ def test_update_keeps_tf32_off_and_restores_the_setting(monkeypatch):
     monkeypatch.setattr(torch.linalg, "solve_ex", spy)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     prob = als.synthetic_netflix(40, 30, d=4, density=0.4, device="cpu")
-    api.run(*als.build(prob)[:2], device="cpu", num_supersteps=1)
-    assert seen == [False, False]
+    res = api.run(*als.build(prob)[:2], device="cpu", num_supersteps=1)
+    # one solve a group of the phase plan, each with TF32 off
+    n_groups = sum(len(blocks.rows)
+                   for _, _, blocks in res.engine.plan.phases)
+    assert seen == [False] * n_groups
     assert torch.backends.cuda.matmul.allow_tf32 is True
 
 

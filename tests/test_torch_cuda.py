@@ -34,6 +34,7 @@ from repro_torch.kernels import ell_spmv as port
 from repro_torch.kernels import window_attention as wa
 from repro_torch.kernels.ref import (decode_window_attention_partial_ref,
                                      decode_window_attention_ref)
+from repro_torch.profile import tracing
 
 SHAPES = [                       # (nv, deg, rows, feat)
     (1, 1, 1, 1),
@@ -238,6 +239,24 @@ def test_gpu_pagerank_equals_cpu_pagerank_bitwise(cuda, use_kernel):
     assert torch.equal(gpu.vertex_data["rank"].cpu(), cpu.vertex_data["rank"])
     assert (gpu.superstep, gpu.n_updates) == (cpu.superstep, cpu.n_updates)
     assert gpu.globals["total_rank"].item() == cpu.globals["total_rank"].item()
+
+
+@pytest.mark.cuda
+def test_gpu_chromatic_gather_makes_no_host_sync(cuda):
+    """On the color-major phase plan a phase's scope gather only indexes
+    vertex and edge data through its groups' blocks: the program's
+    ``gather`` spans count no device-to-host synchronization, and no
+    phase falls back to the routed path."""
+    edges = zipf_edges(2000, alpha=2.0, seed=1)
+    g, upd, syncs = pagerank.build(edges, 2000, eps=1e-4, device=cuda)
+    with tracing(cuda) as rec:
+        res = api.run(g, upd, syncs=syncs, device=cuda)
+    s = rec.summary()
+    assert res.superstep > 0 and not res.active_any
+    assert s["spans"]["gather"]["calls"] > 0
+    assert s["spans"]["gather"]["host_syncs"] == 0
+    assert s["counters"].get("phases.fallback", 0) == 0
+    assert s["counters"]["host_syncs"] > 0     # the counting is on
 
 
 @pytest.mark.cuda
@@ -460,8 +479,11 @@ def test_gpu_als_equals_cpu_als(cuda):
     cpu = api.run(g, upd, syncs=syncs, device="cpu", num_supersteps=5)
     before = als_port.als_normal_eq.launches
     gpu = api.run(g, upd, syncs=syncs, device=cuda, num_supersteps=5)
-    # the update reached the CUDA launch: one fold per color phase
-    assert als_port.als_normal_eq.launches == before + 2 * 5
+    # the update reached the CUDA launch: one fold per group of the
+    # color-major phase plan (the two colors' rows at each stored width)
+    groups = sum(len(blocks.rows) for _, _, blocks in gpu.engine.plan.phases)
+    assert groups >= 2
+    assert als_port.als_normal_eq.launches == before + groups * 5
     assert (gpu.superstep, gpu.n_updates) == (cpu.superstep, cpu.n_updates)
     torch.testing.assert_close(gpu.vertex_data["w"].cpu(),
                                cpu.vertex_data["w"], rtol=1e-4, atol=1e-5)

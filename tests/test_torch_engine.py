@@ -8,6 +8,7 @@ does not fuse, so each update can differ by an ulp.  The port's own
 invariants are bitwise: the kernel arm equals the dense arm, and the
 GPU run equals the CPU run (``tests/test_torch_cuda.py``, on a card).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -24,11 +25,16 @@ from repro.core import exec as ref_exec
 from repro.core import sync as ref_sync
 from repro.core import update as ref_update
 from repro_torch import api, interop
-from repro_torch.apps import pagerank
+from repro_torch.apps import coem, gibbs, pagerank
 from repro_torch.core import exec as port_exec
+from repro_torch.core import graph as port_graph
 from repro_torch.core import sync as port_sync
 from repro_torch.core import update as port_update
+from repro_torch.core.coloring import single_color
+from repro_torch.core.engine_chromatic import ChromaticEngine
 from repro_torch.core.engine_sequential import run_sequential
+from repro_torch.core.graph import zipf_edges
+from repro_torch.profile.trace import tracing
 from torch_parity import ENGINE_GRAPHS, reference_arrays
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -281,6 +287,158 @@ def test_route_and_dense_fold_match_reference():
         g.ell, torch.from_numpy(ids), torch.from_numpy(sel),
         torch.from_numpy(w), torch.from_numpy(vals))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _grid_edges(nz, ny, nx):
+    """The 6-neighbour grid's edges."""
+    idx = np.arange(nz * ny * nx).reshape(nz, ny, nx)
+    return np.concatenate([
+        np.stack([idx[:, :, :-1].ravel(), idx[:, :, 1:].ravel()], 1),
+        np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], 1),
+        np.stack([idx[:-1].ravel(), idx[1:].ravel()], 1)])
+
+
+@pytest.fixture(scope="module")
+def plan_apps():
+    """Per app: a tiny graph, its update and syncs: hubs for the two
+    aggregators; an Ising grid for Gibbs, a dense update whose few
+    border rows join the interior's group of their color."""
+    n = 300
+    edges = zipf_edges(n, alpha=2.0, seed=3)
+    prob = coem.synthetic_ner(120, 80, 3, mean_deg=8, seed_frac=0.15,
+                              seed=1, device="cpu")
+    shape = (4, 60, 80)
+    ising = gibbs.ising_problem(_grid_edges(*shape), int(np.prod(shape)),
+                                0.4, field=0.1, seed=2, device="cpu")
+    return {"pagerank": pagerank.build(edges, n, eps=1e-4, device="cpu"),
+            "coem": coem.build(prob, eps=1e-4),
+            "gibbs": gibbs.build(ising)}
+
+
+def _routed_run(graph, update, syncs, use_kernel, max_supersteps):
+    """The gather-and-route path driven by hand: the color batches
+    padded to ``[Cmax]`` (``build_color_batches``) through
+    ``apply_batch`` at the bucket dispatch, with no phase plan."""
+    ids, valid = (torch.from_numpy(a) for a in
+                  port_exec.build_color_batches(graph.colors.numpy()))
+    st = port_exec.init_engine_state(graph.vertex_data, graph.edge_data,
+                                     graph.n_vertices, syncs, "cpu")
+    while st.superstep < max_supersteps and bool(st.active.any()):
+        carry = (st.vertex_data, st.edge_data, st.active, st.priority,
+                 st.n_updates)
+        for c in range(ids.shape[0]):
+            carry = port_exec.apply_batch(graph, update, carry, ids[c],
+                                          valid[c], st.globals,
+                                          use_kernel=use_kernel)
+        vd, ed, act, pri, n_upd = carry
+        st = port_exec.EngineState(
+            vd, ed, act, pri,
+            port_exec.refresh_syncs(syncs, st.globals, vd, st.superstep),
+            st.superstep + 1, n_upd)
+    return st
+
+
+def _flat_globals(g):
+    return [torch.as_tensor(v) for k in sorted(g)
+            for v in (g[k] if isinstance(g[k], tuple) else (g[k],))]
+
+
+@pytest.mark.parametrize("scheduler", ["chromatic", "bsp"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("app", ["coem", "pagerank", "gibbs"])
+def test_color_plan_equals_the_routed_path_bitwise(plan_apps, app,
+                                                   use_kernel, scheduler):
+    """A phase run on the color-major plan, each group at its stored
+    width or a joined group's, equals the padded, routed phase bit for
+    bit: data, counts, supersteps, syncs and the task set (BSP: one
+    color whose rows are adjacent, so groups reschedule each other's
+    rows)."""
+    graph, update, syncs = plan_apps[app]
+    if scheduler == "bsp":
+        graph = graph.with_colors(single_color(graph.n_vertices))
+    steps = 8 if app == "gibbs" else 40          # Gibbs sweeps forever
+    got = api.run(graph, update, syncs=syncs, scheduler=scheduler,
+                  use_kernel=use_kernel, max_supersteps=steps, device="cpu")
+    assert got.engine.plan is not None
+    want = _routed_run(graph, update, syncs, use_kernel, steps)
+    for k in want.vertex_data:
+        assert torch.equal(got.vertex_data[k], want.vertex_data[k]), k
+    assert (got.superstep, got.n_updates) == (want.superstep,
+                                              int(want.n_updates))
+    assert torch.equal(got.state.active, want.active)
+    assert torch.equal(got.state.priority, want.priority)
+    for a, b in zip(_flat_globals(got.globals), _flat_globals(want.globals),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("app", ["pagerank", "gibbs"])
+def test_color_plan_holds_each_row_at_its_stored_width(plan_apps, app):
+    """Phase ``c`` of the plan is color ``c``'s rows, in groups of one
+    width, each row's slots those of the graph's storage: the widest
+    row's stored width, the others padded to it by at most
+    ``JOIN_PAD_SHARE`` of the group's slots (the grid's border rows
+    join the interior's group; the Zipf graph's groups stay apart)."""
+    graph, update, _ = plan_apps[app]
+    eng = ChromaticEngine(graph, update)
+    ell, colors = graph.ell, graph.colors
+    width = dict(zip(range(ell.n_buckets), ell.widths))
+    stored = {}
+    for b in range(ell.n_buckets):
+        for r in ell.perm[ell.starts[b]: ell.starts[b + 1]].tolist():
+            stored[r] = width[b]
+    seen, joined = [], 0
+    for c, (ids, valid, blocks) in enumerate(eng.plan.phases):
+        assert bool(valid.all()) and bool((colors[ids.long()] == c).all())
+        assert list(blocks.offsets) == sorted(blocks.offsets)
+        assert blocks.offsets[-1] == ids.shape[0]
+        widths = [rows.nbrs.shape[1] for rows in blocks.rows]
+        assert widths == sorted(set(widths))
+        for g, rows in enumerate(blocks.rows):
+            gid = ids[blocks.offsets[g]: blocks.offsets[g + 1]]
+            w = rows.nbrs.shape[1]
+            own = [stored[r] for r in gid.tolist()]
+            assert max(own) == w
+            assert (sum(w - x for x in own)
+                    <= port_graph.JOIN_PAD_SHARE * len(own) * w)
+            joined += len(set(own)) > 1
+            for a, b in zip(rows, ell.rows(gid, width=w)):
+                assert torch.equal(a, b)
+        seen += ids.tolist()
+    assert sorted(seen) == list(range(graph.n_vertices))
+    assert eng.plan.store.padded_slots < ell.padded_slots * eng.n_phases
+    assert (joined == eng.n_phases) if app == "gibbs" else joined == 0
+
+
+def test_step_on_a_mutated_structure_lays_the_plan_out_again():
+    """``step_on`` against an inserted-into structure (the serving path)
+    lays the plan out again from that structure and runs on it, bitwise
+    the routed path over the same structure, with no fallback phase."""
+    n = 300
+    edges = zipf_edges(n, alpha=2.0, seed=3)
+    graph, update, syncs = pagerank.build(edges, n, eps=1e-4, slack=2,
+                                          device="cpu")
+    colors = graph.colors.numpy()
+    rng = np.random.default_rng(0)
+    have = {tuple(sorted(e)) for e in edges.tolist()}
+    new = [(u, v) for u, v in rng.integers(0, n, (200, 2)).tolist()
+           if colors[u] != colors[v] and (min(u, v), max(u, v)) not in have]
+    mutated = port_graph.insert_edges(graph, np.asarray(new[:20]))
+    assert mutated is not None
+    eng = ChromaticEngine(graph, update, syncs)
+    built = eng.plan
+    with tracing("cpu") as rec:
+        got = eng.step_on(mutated, eng.init_state())
+    assert eng.plan is not built and eng.plan.source is mutated.ell
+    assert rec.summary()["counters"].get("phases.fallback", 0) == 0
+    struct = dataclasses.replace(graph, ell=mutated.ell,
+                                 degree=mutated.degree)
+    want = _routed_run(struct, update, syncs, True, 1)
+    for k in want.vertex_data:
+        assert torch.equal(got.vertex_data[k], want.vertex_data[k]), k
+    assert int(got.n_updates) == int(want.n_updates)
+    assert torch.equal(got.active, want.active)
+    assert torch.equal(got.priority, want.priority)
 
 
 def test_unported_options_raise(monkeypatch):

@@ -7,7 +7,8 @@
    ``phase`` spans in each, every layer span under the phase whose ids
    it carries.
 3. **The counters**: the first superstep's real, gathered and routed
-   slots against counts made independently of the executor.
+   slots and its fallback phases against counts made independently of
+   the executor, on the color-major plan and on split storage.
 4. **Host syncs**: a synchronizing-operation warning is charged to the
    innermost span, and the warning state is restored afterwards.
 5. **The profiler's clock**: under ``torch.profiler`` the spans are user
@@ -108,18 +109,49 @@ def test_span_tree_is_well_formed(traced):
     assert child <= s["spans"]["superstep"]["device_s"]
 
 
-def test_slot_counters_of_the_first_superstep(built, traced):
+@pytest.fixture(scope="module")
+def traced_split(built):
+    """The same graph with its hubs split (``w_cap`` 8), traced: no
+    phase plan, every phase gathered at ``max_deg`` and routed."""
+    edges, _ = built
+    graph, update, syncs = pagerank.build(edges, N, w_cap=8, device="cpu")
+    assert graph.ell.is_split
+    with tracing("cpu") as rec:
+        res = api.run(graph, update, syncs=syncs, scheduler="chromatic",
+                      device="cpu")
+    return graph, res, rec
+
+
+@pytest.mark.parametrize("storage", ["unsplit", "split"])
+def test_slot_counters_of_the_first_superstep(built, traced, traced_split,
+                                              storage):
+    """Unsplit, the phases run on the color-major plan: each row is
+    gathered once at its stored width, nothing is routed and no phase
+    falls back.  Split, every phase falls back to ``[Cmax, max_deg]``
+    gathers and the routing onto the buckets."""
     edges, (graph, _, _) = built
-    res, rec = traced
+    if storage == "unsplit":
+        res, rec = traced
+    else:
+        graph, res, rec = traced_split
     first = {r["name"]: r["value"] for r in rec.records
              if r["kind"] == "count" and r.get("superstep") == 0}
     stored = int(graph.ell.slots.nbr_mask.sum())
     assert first["slots.real"] == 2 * len(edges) == stored
     eng = res.engine
     cmax = eng._color_ids.shape[1]
-    assert first["slots.gathered"] == eng.n_phases * cmax * graph.max_deg
-    assert first["slots.routed"] == eng.n_phases * graph.ell.padded_slots
     s = rec.summary()["counters"]
+    if storage == "unsplit":
+        assert first["slots.gathered"] == eng.plan.store.padded_slots
+        assert first.get("slots.routed", 0) == 0
+        assert first.get("phases.fallback", 0) == 0
+        assert s.get("phases.fallback", 0) == 0
+    else:
+        assert eng.plan is None
+        assert first["slots.gathered"] == eng.n_phases * cmax * graph.max_deg
+        assert first["slots.routed"] == eng.n_phases * graph.ell.padded_slots
+        assert first["phases.fallback"] == eng.n_phases
+        assert s["phases.fallback"] == eng.n_phases * res.superstep
     assert s["launches.ell_spmv"] == 0          # the CPU's plain version
     assert s["host_syncs"] == 0
 

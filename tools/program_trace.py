@@ -22,12 +22,16 @@ port's build, one warm job), then runs, in turn:
 
 Every job's answer is judged against the plain reference with the
 cell's limits.  Prints the layer times a superstep (stream time between
-CUDA events, no synchronize), ``host_syncs`` by span and for one phase
-against the sync sites read from the code (one ``nonzero`` a degree
-bucket in the bucket-wise row gather and in the routing, five more a
-phase) and by the line that made them, the useful share of the gathered
-slots, and how much of each superstep and phase its child spans cover;
-``--json PATH`` writes it all.
+CUDA events, no synchronize), ``host_syncs`` by span and for each phase
+of the first superstep against the sync sites read from PageRank's code
+(on the chromatic engine's color-major plan: four a phase, the
+write-back's two compactions, the consume and the reschedule's
+``nonzero``; on the routed path: one ``nonzero`` a degree bucket in the
+bucket-wise row gather and in the routing, five more a phase) and by the
+line that made them, the useful share of the gathered slots, the phases
+that fell back to the routed path (``phases.fallback``), and how much of
+each superstep and phase its child spans cover; ``--json PATH`` writes
+it all.
 """
 import argparse
 import json
@@ -98,7 +102,16 @@ def phase_syncs(rec):
     return [[s, c, n] for (s, c), n in sorted(out.items())]
 
 
-def traced_numbers(rec, n_buckets):
+def sites_read_from_code(engine, n_buckets):
+    """The host syncs each phase of a PageRank superstep makes, as read
+    from the code (see the module's docstring)."""
+    plan = getattr(engine, "plan", None)
+    if plan is None:
+        return [2 * n_buckets + 5] * engine.n_phases
+    return [4 if blocks.rows else 0 for _, _, blocks in plan.phases]
+
+
+def traced_numbers(rec, sites):
     s = rec.summary()
     c = s["counters"]
     steps = s["supersteps"]
@@ -112,6 +125,8 @@ def traced_numbers(rec, n_buckets):
         "supersteps": steps,
         "spans": s["spans"],
         "counters": c,
+        "phases_fallback": c.get("phases.fallback", 0),
+        "slots_routed": c.get("slots.routed", 0),
         "host_syncs_by_span": {k: v["host_syncs"]
                                for k, v in s["spans"].items()},
         "host_syncs_by_site": dict(sorted(s["sync_sites"].items(),
@@ -119,7 +134,7 @@ def traced_numbers(rec, n_buckets):
         "host_syncs_outside_spans": c.get("host_syncs", 0) - sum(
             v["host_syncs"] for v in s["spans"].values()),
         "phase_syncs_first_superstep": first,
-        "phase_sync_sites_read_from_code": 2 * n_buckets + 5,
+        "phase_sync_sites_read_from_code": sites,
         "coverage": coverage(rec),
     }
 
@@ -160,7 +175,8 @@ def measure(cell, card, seed, jobs, traced):
             t_job = time.perf_counter() - t0
         wall = time.perf_counter() - t0
         keep(res)
-        nums = traced_numbers(rec, n_buckets)
+        nums = traced_numbers(rec, sites_read_from_code(res.engine,
+                                                        n_buckets))
         nums.update(wall_s=wall, job_wall_s=t_job,
                     ell_spmv_launches=ell_spmv.launches - before)
         runs.append(nums)
