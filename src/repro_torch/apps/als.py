@@ -14,8 +14,19 @@ on the chromatic engine.
 The deg-bound half of the update, the normal equations ``(A, b)``, goes
 through the ``als_normal_eq`` CUDA kernel (``als_normal_eq_fold`` on the
 gathered scope).  The reference computes that same function with two
-einsums; the ridge, the LU solve and the prediction stay PyTorch, as
-the reference leaves them outside any kernel.
+einsums; the ridge, the LU solve and the prediction stay PyTorch
+(``ridge_solve``), as the reference leaves them outside any kernel.
+Both halves are looked up as this module's attributes when the update
+runs, so an instrument that wraps them here sees every call.
+
+Inside a ``repro_torch.profile.tracing()`` context the update records a
+``kernel`` span (attribute ``kernel="als_normal_eq"``) around the fold,
+a ``solve`` span around ``ridge_solve`` and the counter
+``als.fold_slots``: the ``B x D`` slots each fold reads (``slots.real``
+over it is the fold's useful share).
+
+``from_ratings`` builds a problem from given ``(user, movie, rating)``
+triples; ``synthetic_netflix`` draws its triples and builds through it.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from repro_torch.core.sync import SyncOp
 from repro_torch.core.update import (Consistency, ScopeBatch, UpdateFn,
                                      UpdateResult)
 from repro_torch.kernels.als_normal_eq import als_normal_eq_fold
+from repro_torch.profile.trace import count, span
 
 
 @contextlib.contextmanager
@@ -45,6 +57,27 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def ridge_solve(A: torch.Tensor, b: torch.Tensor, n_obs: torch.Tensor,
+                w_old: torch.Tensor, X: torch.Tensor, lam: float):
+    """The vertex half of the update after the fold: the ridge
+    ``lam * max(n_obs, 1)`` on A's diagonal (ALS-WR), the LU solve of
+    ``A w = b``, isolated vertices (``n_obs == 0``) keeping ``w_old``,
+    and the prediction ``<w, X_j>`` of every slot.  Returns ``(w_new
+    [B, d], pred [B, D])``."""
+    d = A.shape[-1]
+    A = A + (lam * n_obs.clamp_min(1.0))[:, None, None] * torch.eye(
+        d, dtype=A.dtype, device=A.device)
+    with _full_f32_matmul():
+        # LU as jnp.linalg.solve; solve_ex leaves the error check (a
+        # host sync) out: the ridge makes A positive definite
+        w_new = torch.linalg.solve_ex(A, b[..., None]).result[..., 0]
+        # isolated vertices keep their factor
+        w_new = torch.where(n_obs[:, None] > 0, w_new, w_old)
+        # local residual (for the RMSE sync); counted on movie side only
+        pred = torch.einsum("bi,bdi->bd", w_new, X)
+    return w_new, pred
+
+
 def make_update(d: int, lam: float = 0.05, eps: float = 1e-3) -> UpdateFn:
     def update(scope: ScopeBatch) -> UpdateResult:
         X = scope.nbr_data["w"]                      # [B, D, d]
@@ -52,19 +85,12 @@ def make_update(d: int, lam: float = 0.05, eps: float = 1e-3) -> UpdateFn:
         mask = scope.nbr_mask
         m = mask.to(X.dtype)
         # normal equations: (X^T X + lam*n*I) w = X^T r
-        A, b = als_normal_eq_fold(mask, r, X)
+        count("als.fold_slots", mask.numel())
+        with span("kernel", kernel="als_normal_eq"):
+            A, b = als_normal_eq_fold(mask, r, X)
         n_obs = m.sum(dim=1)
-        A = A + (lam * n_obs.clamp_min(1.0))[:, None, None] * torch.eye(
-            d, dtype=X.dtype, device=X.device)
-        with _full_f32_matmul():
-            # LU as jnp.linalg.solve; solve_ex leaves the error check (a
-            # host sync) out: the ridge makes A positive definite
-            w_new = torch.linalg.solve_ex(A, b[..., None]).result[..., 0]
-            # isolated vertices keep their factor
-            w_new = torch.where(n_obs[:, None] > 0, w_new,
-                                scope.v_data["w"])
-            # local residual (for the RMSE sync); counted on movie side only
-            pred = torch.einsum("bi,bdi->bd", w_new, X)
+        with span("solve"):
+            w_new, pred = ridge_solve(A, b, n_obs, scope.v_data["w"], X, lam)
         se = ((pred - r) * m).square().sum(dim=1)
         is_right = scope.v_data["is_movie"]
         delta = (w_new - scope.v_data["w"]).abs().amax(dim=1)
@@ -150,8 +176,30 @@ def synthetic_netflix(n_users: int, n_movies: int, d: int, density: float,
     ratings = (np.einsum("ed,ed->e", U[ui], V[mi])
                + noise * rng.normal(size=len(ui))).astype(np.float32)
     pairs = np.stack([ui, mi], axis=1)
+    w0 = rng.normal(size=(n_users + n_movies, d_model)).astype(
+        np.float32) * 0.1
+    problem = from_ratings(n_users, n_movies, pairs, ratings, d_model, w0,
+                           slack=slack, device=device)
+    return dataclasses.replace(problem, noise=noise)
+
+
+def from_ratings(n_users: int, n_movies: int, pairs, ratings, d: int, w0,
+                 *, slack: int = 0, device=None) -> ALSProblem:
+    """The problem of given ratings: ``pairs [Ne, 2]`` (user, movie)
+    indices, one rating each (``ratings [Ne]`` float32), and the
+    starting factors ``w0 [n_users + n_movies, d]`` (users first).  The
+    graph is the bipartite rating graph, two-colored (users 0, movies
+    1), with ``slack=`` free slots a row for ``api.serve``; its tensors
+    go to ``device`` (default: the GPU).  ``noise`` is 0: the ratings'
+    noise is unknown here."""
+    pairs = np.asarray(pairs)
+    ratings = np.asarray(ratings, np.float32)
     nv, edges = bipartite_edges(n_users, n_movies, pairs)
-    w0 = rng.normal(size=(nv, d_model)).astype(np.float32) * 0.1
+    if ratings.shape != (len(edges),):
+        raise ValueError(f"ratings must be [{len(edges)}], one a pair, "
+                         f"got {ratings.shape}")
+    if tuple(np.shape(w0)) != (nv, d):
+        raise ValueError(f"w0 must be [{nv}, {d}], got {np.shape(w0)}")
     is_movie = np.zeros(nv, np.float32)
     is_movie[n_users:] = 1.0
     g = DataGraph.from_edges(
@@ -167,14 +215,14 @@ def synthetic_netflix(n_users: int, n_movies: int, d: int, density: float,
         device=device,
     )
     g = g.with_colors(bipartite_coloring(n_users, nv))
-    return ALSProblem(g, n_users, n_movies, d_model, ratings, pairs, noise)
+    return ALSProblem(g, n_users, n_movies, d, ratings, pairs, 0.0)
 
 
 def build(problem: ALSProblem, *, lam: float = 0.05, eps: float = 1e-3,
           tau: int = 1):
     """Uniform facade triple ``(graph, update, syncs)`` for a problem
-    from ``synthetic_netflix`` (keep the problem around for
-    ``dataset_rmse``)."""
+    from ``synthetic_netflix`` or ``from_ratings`` (keep the problem
+    around for ``dataset_rmse``)."""
     return (problem.graph, make_update(problem.d, lam=lam, eps=eps),
             (rmse_sync(tau),))
 

@@ -61,6 +61,11 @@ FLAT_GATHER_SLOTS = 1 << 27
 # kernels' vector loads need an aligned row base
 SLOT_ALIGN = 64
 
+# the most slots a store may hold: ``_row_offset``, the flat gather's
+# indices and the plan's regrouping address them in int32 (Netflix's
+# 100 M ratings take 2.9e8 stored slots)
+MAX_STORE_SLOTS = 2 ** 31 - 1
+
 # ``SlicedEll.regrouped``: a (key, width) group joins the next wider
 # group of its key where its rows, padded to that width, add at most
 # this share of the joined block's slots.  Each group of a chromatic
@@ -135,6 +140,10 @@ class SlicedEll:
 
     def __post_init__(self):
         offs, pad = block_offsets(self.starts, self.widths)
+        if pad >= MAX_STORE_SLOTS:
+            raise ValueError(f"the flat stores would hold {pad + 1} slots; "
+                             f"row offsets and gathers index them in int32 "
+                             f"(at most {MAX_STORE_SLOTS})")
         sizes = [e - s for s, e in zip(self.starts, self.starts[1:])]
         self.nbrs, self.nbr_mask, self.edge_ids, self.is_src = (
             tuple(flat[o: o + n * w].view(n, w)
@@ -461,14 +470,16 @@ def bucket_major_edge_order(ell: SlicedEll, n_edges: int) -> np.ndarray:
 
     Walking buckets in width order, rows in bucketed position order and
     slots left to right, an edge is numbered at its first appearance.
-    Host-side, build-time only.
+    That walk is the flat stores' real slots in store order (the blocks
+    lie in bucket order, each row-major, the gaps padding).  Build time
+    only, on the storage's device: a stable sort finds each edge's first
+    visit, bitwise ``np.unique(..., return_index=True)``'s.
     """
-    visits = [ell.edge_ids[b].cpu().numpy()[ell.nbr_mask[b].cpu().numpy()]
-              for b in range(ell.n_buckets)]
-    flat = (np.concatenate(visits) if visits
-            else np.zeros(0, np.int64)).astype(np.int64)
-    _, first = np.unique(flat, return_index=True)
-    order = flat[np.sort(first)]
+    flat = ell.slots.edge_ids[ell.slots.nbr_mask].long()
+    ids, pos = torch.sort(flat, stable=True)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[1:] = ids[1:] != ids[:-1]
+    order = flat[torch.sort(pos[first]).values].cpu().numpy()
     if len(order) != n_edges:
         raise ValueError("every edge must appear in some row")
     return order
@@ -799,7 +810,16 @@ def _build_ell_vectorized(n_vertices: int, edges: np.ndarray, md: int):
     return nbrs, mask, eids, is_src
 
 
-def edge_slot_lists(n_vertices: int, edges: np.ndarray):
+def stable_argsort(a: np.ndarray, device=None) -> np.ndarray:
+    """``np.argsort(a, kind="stable")``, sorted by ``torch.sort(...,
+    stable=True)`` on ``device`` (default: the CPU): a stable sort's
+    permutation is unique, so the two are bitwise equal."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(
+        "cpu" if device is None else device)
+    return torch.sort(t, stable=True).indices.cpu().numpy()
+
+
+def edge_slot_lists(n_vertices: int, edges: np.ndarray, device=None):
     """Every row's real slots, ``(seg_start, counts, (nbrs, edge_ids,
     is_src))`` as ``padded_slots`` returns them, straight from the edge
     list, with no ``[Nv, max_deg]`` array (5.4 GB at 2^21 vertices and
@@ -808,7 +828,7 @@ def edge_slot_lists(n_vertices: int, edges: np.ndarray):
     (the loop builder reads both cursors before either write); sorted
     by vertex the occurrences are in slot order, a self-loop's two
     writes adjacent, the later (its v side, ``is_src`` forced True)
-    kept."""
+    kept.  The sort by vertex runs on ``device`` (``stable_argsort``)."""
     ne = len(edges)
     if ne == 0:
         z = np.zeros(n_vertices, np.int64)
@@ -817,7 +837,7 @@ def edge_slot_lists(n_vertices: int, edges: np.ndarray):
     flat_v = edges.reshape(-1)
     vside_selfloop = np.zeros(2 * ne, dtype=np.int64)
     vside_selfloop[1::2] = edges[:, 0] == edges[:, 1]
-    order = np.argsort(flat_v, kind="stable")
+    order = stable_argsort(flat_v, device)
     sv = flat_v[order]
     boundary = np.ones(2 * ne, dtype=bool)
     boundary[1:] = sv[1:] != sv[:-1]
@@ -979,7 +999,7 @@ class DataGraph:
             md = max_deg
         md = max(md, 1)
 
-        slot_lists = edge_slot_lists(n_vertices, edges)
+        slot_lists = edge_slot_lists(n_vertices, edges, device)
         if width_policy == "measured":
             from repro_torch.profile.model import (load_cost_model,
                                                    resolve_cost_model)

@@ -11,7 +11,8 @@ bfloat16), and PageRank on the GPU to the same PageRank on the CPU,
 bitwise: the kernels' products and adds are unfused, as the CPU's eager
 slot loops are.  ALS on the GPU equals ALS on the CPU bitwise in its
 normal equations; its factors pass through cuSOLVER's LU on the card and
-LAPACK's on the CPU, so they are held to rtol = 1e-4, atol = 1e-5.
+LAPACK's on the CPU, so they are held to rtol = 1e-4, atol = 1e-5, and
+so are its color-major plan and its routed phases on the card.
 The window-attention kernel is held to its plain version within 1e-5
 absolute: both compute in float32, but the kernel's online softmax sums
 in another order, and with a bf16 cache it takes q and p as two bf16
@@ -1492,3 +1493,97 @@ def test_walked_step_on_card_equals_the_dry_run(cuda, arch, kind):
     assert cc.flops == cm.flops
     assert cc.bytes == pytest.approx(cm.bytes, rel=1e-6)
     assert card.peak_bytes == pytest.approx(meta.peak_bytes, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_als_color_plan_matches_the_routed_path_on_card(cuda):
+    """ALS's sweeps on the color-major plan against the padded, routed
+    phases on the card (heavy-tailed movies, rows of 1 to 3,001 slots):
+    the same updates and task set; B3's normal equations and the
+    prediction (cuBLAS's batched matmul) are the same at any scope
+    width, but the batched LU's kernel moves with the batch's size (a
+    group of one row against a color of 120), so the factors and the
+    RMSE sync agree to the LU's rounding, carried through three sweeps:
+    rtol = 1e-4, atol = 5e-5 (2.3e-5 at most measured on the H100,
+    factors of ~0.1 to 1)."""
+    rng = np.random.default_rng(31)
+    n_users, n_movies, d = 3000, 120, 20
+    deg = np.minimum(3000 // np.arange(1, n_movies + 1) + 1, n_users)
+    users = np.concatenate([rng.choice(n_users, k, replace=False)
+                            for k in deg])
+    pairs = np.stack([users, np.repeat(np.arange(n_movies), deg)], axis=1)
+    w0 = (rng.normal(size=(n_users + n_movies, d)) * 0.1).astype(np.float32)
+    prob = als.from_ratings(n_users, n_movies, pairs,
+                            rng.normal(size=len(users)).astype(np.float32),
+                            d, w0, device=cuda)
+    g, upd, syncs = als.build(prob, lam=0.01, eps=0.0)
+    got = api.run(g, upd, syncs=syncs, scheduler="chromatic",
+                  max_supersteps=3, device=cuda)
+    ids, valid = (torch.from_numpy(a).to(cuda) for a in
+                  build_color_batches(g.colors.cpu().numpy()))
+    from repro_torch.core import exec as ex
+    st = ex.init_engine_state(g.vertex_data, g.edge_data, g.n_vertices,
+                              syncs, cuda)
+    for step in range(3):
+        carry = (st.vertex_data, st.edge_data, st.active, st.priority,
+                 st.n_updates)
+        for c in range(ids.shape[0]):
+            carry = ex.apply_batch(g, upd, carry, ids[c], valid[c],
+                                   st.globals)
+        vd, ed, act, pri, n_upd = carry
+        st = ex.EngineState(vd, ed, act, pri,
+                            ex.refresh_syncs(syncs, st.globals, vd, step),
+                            step + 1, n_upd)
+    assert sum(len(p[2].rows) for p in got.engine.plan.phases) > 4
+    assert got.n_updates == int(st.n_updates)
+    assert torch.equal(got.state.active, st.active)
+    for k in ("cnt", "is_movie"):
+        assert torch.equal(got.vertex_data[k], st.vertex_data[k]), k
+    for k in ("w", "err"):
+        torch.testing.assert_close(got.vertex_data[k], st.vertex_data[k],
+                                   rtol=1e-4, atol=5e-5)
+    torch.testing.assert_close(got.globals["rmse"], st.globals["rmse"],
+                               rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["plain", "hub_split", "slack"])
+def test_build_sorts_on_card_equal_numpys(cuda, store):
+    """The build's two sorts on the card (``stable_argsort`` over the
+    edges' vertex ends, ``bucket_major_edge_order``'s first visits)
+    against numpy's on the same input, and the whole graph built on the
+    card against the one built on the CPU, on an unsplit store, one with
+    its hubs split into rows of 16 slots and one with 3 free slots a row:
+    bitwise, since a stable sort's permutation is unique."""
+    from repro_torch.core import graph as port_graph
+    kw = {"plain": {}, "hub_split": {"w_cap": 16},
+          "slack": {"slack": 3}}[store]
+    rng = np.random.default_rng(31)
+    edges = np.concatenate([zipf_edges(3000, 2.0, seed=31),
+                            np.stack([np.zeros(400, np.int64),
+                                      rng.permutation(2999)[:400] + 1],
+                                     axis=1)])
+    flat = edges.reshape(-1)
+    big = rng.integers(0, 5000, 3_000_000)
+    for a in (flat, big):
+        assert np.array_equal(port_graph.stable_argsort(a, cuda),
+                              np.argsort(a, kind="stable"))
+    card = DataGraph.from_edges(3000, edges, {}, edge_locality=False,
+                                device=cuda, **kw)
+    ell = card.ell
+    assert (ell.starts[-1] > ell.n_rows) == (store == "hub_split")
+    visits = np.concatenate([
+        ell.edge_ids[b].cpu().numpy()[ell.nbr_mask[b].cpu().numpy()]
+        for b in range(ell.n_buckets)]).astype(np.int64)
+    _, first = np.unique(visits, return_index=True)
+    assert np.array_equal(port_graph.bucket_major_edge_order(ell, len(edges)),
+                          visits[np.sort(first)])
+    on_card = DataGraph.from_edges(3000, edges, {}, device=cuda, **kw)
+    on_cpu = DataGraph.from_edges(3000, edges, {}, device="cpu", **kw)
+    assert np.array_equal(on_card.edge_perm, on_cpu.edge_perm)
+    assert np.array_equal(on_card.edges_np, on_cpu.edges_np)
+    assert (on_card.ell.widths, on_card.ell.starts) == (on_cpu.ell.widths,
+                                                        on_cpu.ell.starts)
+    for x, y in zip(on_card.ell.slots, on_cpu.ell.slots, strict=True):
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(on_card.ell.perm.cpu(), on_cpu.ell.perm)

@@ -6,6 +6,8 @@ instruments, on one GPU.
     python3 tools/program_trace.py [--workload pagerank-zipf.chromatic] \\
         [--seed N] [--jobs 3] [--traced 2] [--json PATH]
 
+(``--workload als-netflix.chromatic`` for ALS.)
+
 Builds the cell as ``bench/run.py`` does (inputs from the seed, the
 port's build, one warm job), then runs, in turn:
 
@@ -22,16 +24,18 @@ port's build, one warm job), then runs, in turn:
 
 Every job's answer is judged against the plain reference with the
 cell's limits.  Prints the layer times a superstep (stream time between
-CUDA events, no synchronize), ``host_syncs`` by span and for each phase
-of the first superstep against the sync sites read from PageRank's code
-(on the chromatic engine's color-major plan: four a phase, the
-write-back's two compactions, the consume and the reschedule's
-``nonzero``; on the routed path: one ``nonzero`` a degree bucket in the
-bucket-wise row gather and in the routing, five more a phase) and by the
-line that made them, the useful share of the gathered slots, the phases
-that fell back to the routed path (``phases.fallback``), and how much of
-each superstep and phase its child spans cover; ``--json PATH`` writes
-it all.
+CUDA events, no synchronize), the ``kernel`` spans by their ``kernel``
+attribute (``kernel[als_normal_eq]``: ALS's fold), ``host_syncs`` by
+span and for each phase of the first superstep against the sync sites
+read from the code (on the chromatic engine's color-major plan: the
+write-back's two compactions a vertex field, the consume and the
+reschedule's ``nonzero``, four a phase for PageRank's one field and ten
+for ALS's four; on the routed path: one ``nonzero`` a degree bucket in
+the bucket-wise row gather and in the routing, five more a phase) and by
+the line that made them, the useful share of the gathered slots (and of
+ALS's folded slots, ``als.fold_slots``), the phases that fell back to
+the routed path (``phases.fallback``), and how much of each superstep
+and phase its child spans cover; ``--json PATH`` writes it all.
 """
 import argparse
 import json
@@ -48,6 +52,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 READS = {
     "gather_span_ms": ("gather",),
     "reschedule_span_ms": ("writeback", "reschedule", "syncs"),
+    "solve_span_ms": ("solve",),
 }
 
 
@@ -102,13 +107,31 @@ def phase_syncs(rec):
     return [[s, c, n] for (s, c), n in sorted(out.items())]
 
 
-def sites_read_from_code(engine, n_buckets):
-    """The host syncs each phase of a PageRank superstep makes, as read
-    from the code (see the module's docstring)."""
+def sites_read_from_code(engine, n_buckets, n_fields):
+    """The host syncs each phase of a superstep makes, as read from the
+    code, for an update that writes ``n_fields`` vertex fields (see the
+    module's docstring)."""
     plan = getattr(engine, "plan", None)
     if plan is None:
         return [2 * n_buckets + 5] * engine.n_phases
-    return [4 if blocks.rows else 0 for _, _, blocks in plan.phases]
+    return [2 * n_fields + 2 if blocks.rows else 0
+            for _, _, blocks in plan.phases]
+
+
+def kernel_spans_ms(rec):
+    """Device ms a superstep, calls and host syncs of the ``kernel`` spans,
+    by their ``kernel`` attribute (``kernel[name]``)."""
+    spans = [r for r in rec.records if r["kind"] == "span"]
+    steps = sum(r["name"] == "superstep" for r in spans) or 1
+    out = {}
+    for r in spans:
+        if r["name"] == "kernel":
+            k = out.setdefault(f"kernel[{r.get('kernel')}]", {
+                "calls": 0, "ms_per_superstep": 0.0, "host_syncs": 0})
+            k["calls"] += 1
+            k["ms_per_superstep"] += 1e3 * r["device_s"] / steps
+            k["host_syncs"] += r["host_syncs"]
+    return out
 
 
 def traced_numbers(rec, sites):
@@ -122,6 +145,9 @@ def traced_numbers(rec, sites):
         "host_syncs": c.get("host_syncs", 0) / steps if steps else None,
         "useful_slot_pct": (100.0 * c["slots.real"] / c["slots.gathered"]
                             if c.get("slots.gathered") else None),
+        "fold_useful_pct": (100.0 * c["slots.real"] / c["als.fold_slots"]
+                            if c.get("als.fold_slots") else None),
+        "kernel_spans": kernel_spans_ms(rec),
         "supersteps": steps,
         "spans": s["spans"],
         "counters": c,
@@ -159,6 +185,7 @@ def measure(cell, card, seed, jobs, traced):
 
     from repro_torch.kernels.ell_spmv import ell_spmv
     n_buckets = built[0].ell.n_buckets
+    n_fields = len(built[0].vertex_data)
     times, runs = [], []
     for i in range(jobs):
         t0 = time.perf_counter()
@@ -176,7 +203,7 @@ def measure(cell, card, seed, jobs, traced):
         wall = time.perf_counter() - t0
         keep(res)
         nums = traced_numbers(rec, sites_read_from_code(res.engine,
-                                                        n_buckets))
+                                                        n_buckets, n_fields))
         nums.update(wall_s=wall, job_wall_s=t_job,
                     ell_spmv_launches=ell_spmv.launches - before)
         runs.append(nums)
@@ -222,8 +249,9 @@ def measure(cell, card, seed, jobs, traced):
     left = [a.pop("_left") for a in answers]
     per = adapter.check(torch, cell.config, cell.traffic, inputs, answers,
                         card.device)
-    for nums, stuck in zip(per, left):
-        nums["undrained"] = float(stuck)
+    if cell.traffic["stop"] == "drain":
+        for nums, stuck in zip(per, left):
+            nums["undrained"] = float(stuck)
     limit = {k: float(v["limit"]) for k, v in cell.limits.items()}
     out["answers"] = len(per)
     out["correct"] = all(nums[k] <= limit[k] for nums in per for k in nums)
